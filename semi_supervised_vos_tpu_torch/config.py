@@ -1,0 +1,29 @@
+"""Framework-wide constants (the port's copy of the JAX package's
+``config.py``; reference ``src/config.py:10-14``)."""
+
+from __future__ import annotations
+
+import dataclasses
+import multiprocessing
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """Framework-wide constants.
+
+    Attributes:
+      continuous_frame: size of the dense tail of the memory-bank sampling
+        schedule.
+      dense_switch_frame: frame index after which the dense/sparse spatial
+        weight split activates.
+      num_classes: padded class budget (the 22-entry DAVIS palette table).
+      cpu_count: host-parallelism width for evaluation.
+    """
+
+    continuous_frame: int = 4
+    dense_switch_frame: int = 15
+    num_classes: int = 22
+    cpu_count: int = max(multiprocessing.cpu_count(), 1)
+
+
+DEFAULT = Config()

@@ -1,0 +1,174 @@
+"""Per-video propagation engine with a fixed-capacity ring memory bank.
+
+The reference grows ``feats_history`` / ``label_history`` with ``torch.cat``
+every frame (``src/utils/inference_utils.py:23-87``). Here features and
+labels live in a preallocated ring bank of capacity
+``frame_range + continuous_frame + 1``; the sampling schedule never reaches
+further back, so the ring is lossless. The bank is a pair of preallocated
+tensors **updated in place**: each propagated frame overwrites its slot
+``frame_idx % capacity`` (where the JAX engine donated the bank buffers to
+its jitted step instead).
+
+Per chunk of frames: one batched encode, then a sequential propagate →
+argmax → one-hot write-back per frame. The sampling schedule runs on the
+host with Python ints; slots, validity and 1/σ² reach the affinity kernel as
+launch arguments, so no frame waits on a device→host copy. Masks stay on
+the device until the chunk is done.
+
+Two paths, as in the JAX engine:
+  * on CUDA: the BN-folded ``fast_encode`` with the fused bottleneck kernel,
+    the bank-direct affinity kernel, bf16 features and labels;
+  * on the CPU: the unfolded module forward, the dense golden
+    ``affinity_propagate`` and float32 — the JAX engine's CPU path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from semi_supervised_vos_tpu_torch.config import DEFAULT
+from semi_supervised_vos_tpu_torch.core.propagation import affinity_propagate
+from semi_supervised_vos_tpu_torch.core.sampling import bank_capacity, sample_frames
+from semi_supervised_vos_tpu_torch.core.spatial import spatial_weight
+from semi_supervised_vos_tpu_torch.models.resnet import out_spatial
+from semi_supervised_vos_tpu_torch.ops.onehot import index_to_onehot
+from semi_supervised_vos_tpu_torch.ops.resize import nearest_resize
+
+# ImageNet normalisation (reference ``src/utils/datasets.py:36-39``).
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+class BankState(NamedTuple):
+    """Ring memory bank: features (cap, P, C) and labels (cap, P, D)."""
+
+    feats: torch.Tensor
+    labels: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    ref_num: int = 9
+    frame_range: int = 40
+    temperature: float = 1.0
+    sigma_1: float = 8.0
+    sigma_2: float = 21.0
+    num_classes: int = DEFAULT.num_classes
+    feature_dim: int = 256
+    continuous_frame: int = DEFAULT.continuous_frame
+
+    @property
+    def capacity(self) -> int:
+        return bank_capacity(self.frame_range, self.continuous_frame)
+
+
+class PropagationEngine:
+    """Drives one video stream at one (H, W) resolution."""
+
+    def __init__(self, model, frame_hw: Tuple[int, int], cfg: EngineConfig, device):
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
+        self.cfg = cfg
+        self.h, self.w = frame_hw
+        self.hd, self.wd = out_spatial(self.h, self.w)
+        self.p = self.hd * self.wd
+        self.on_card = self.device.type == "cuda"
+        self.mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
+        self.std = torch.as_tensor(IMAGENET_STD, device=self.device)
+        if self.on_card:
+            from semi_supervised_vos_tpu_torch.models.fold import fold_vosnet
+
+            # stated explicitly: any float32 conv or matmul here runs in full
+            # float32 (the encoder itself runs in bf16)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            self.dtype = torch.bfloat16
+            self.label_dtype = torch.bfloat16
+            self.d_pad = -(-cfg.num_classes // 8) * 8
+            with torch.no_grad():
+                self.table = fold_vosnet(self.model, self.dtype)
+        else:
+            self.dtype = torch.float32
+            self.label_dtype = torch.float32
+            self.d_pad = cfg.num_classes
+            self._wd = spatial_weight((self.hd, self.wd), cfg.sigma_1, device=self.device)
+            self._ws = spatial_weight((self.hd, self.wd), cfg.sigma_2, device=self.device)
+
+    @torch.no_grad()
+    def encode(self, frames_u8) -> torch.Tensor:
+        """(N, H, W, 3) uint8 frames → (N, P, C) features in the engine dtype."""
+        # decoded frames are read-only arrays; torch wants writable memory
+        x = torch.from_numpy(np.require(frames_u8, np.uint8, ['C', 'W'])).to(self.device)
+        x = (x.float() / 255.0 - self.mean) / self.std
+        if self.on_card:
+            from semi_supervised_vos_tpu_torch.models.infer_fast import fast_encode
+
+            feats = fast_encode(self.table, x, self.dtype, arch=self.model.model)
+        else:
+            feats = self.model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return feats.reshape(x.shape[0], self.p, self.cfg.feature_dim).to(self.dtype)
+
+    def _propagate(self, target: torch.Tensor, state: BankState, frame_idx: int) -> torch.Tensor:
+        """(P, C) target → (num_classes, P) float32 scores from the bank."""
+        cfg = self.cfg
+        idx, valid, dense = sample_frames(frame_idx, cfg.frame_range, cfg.ref_num, cfg.continuous_frame)
+        slots = idx % cfg.capacity
+        if self.on_card:
+            from semi_supervised_vos_tpu_torch.ops.affinity import affinity_from_bank
+
+            pred = affinity_from_bank(
+                state.feats, state.labels, target.float(), slots,
+                feature_hw=(self.hd, self.wd), temperature=cfg.temperature,
+                valid=valid, dense=dense, sigma_1=cfg.sigma_1, sigma_2=cfg.sigma_2,
+            )
+            return pred[: cfg.num_classes]
+        sel = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        return affinity_propagate(
+            state.feats[sel], target, state.labels[sel],
+            temperature=cfg.temperature,
+            valid=torch.as_tensor(valid, device=self.device),
+            dense=torch.as_tensor(dense, device=self.device),
+            weight_dense=self._wd, weight_sparse=self._ws,
+        )
+
+    def _write(self, state: BankState, slot: int, feats: torch.Tensor, label_idx: torch.Tensor) -> None:
+        """Overwrite one whole bank slot in place."""
+        state.feats[slot].copy_(feats)
+        state.labels[slot].copy_(index_to_onehot(label_idx, self.d_pad, self.label_dtype))
+
+    def init_state(self) -> BankState:
+        cfg = self.cfg
+        return BankState(
+            feats=torch.zeros((cfg.capacity, self.p, cfg.feature_dim), dtype=self.dtype, device=self.device),
+            labels=torch.zeros((cfg.capacity, self.p, self.d_pad), dtype=self.label_dtype, device=self.device),
+        )
+
+    @torch.no_grad()
+    def start_video(self, frame_u8: np.ndarray, label_full: np.ndarray) -> BankState:
+        """Frame 0: a fresh bank holding its features and the downsampled
+        annotation."""
+        state = self.init_state()
+        feats = self.encode(frame_u8[None])[0]
+        label = torch.as_tensor(np.asarray(label_full, np.int64), device=self.device)
+        label_small = nearest_resize(label[:, :, None], (self.hd, self.wd)).reshape(self.p)
+        self._write(state, 0, feats, label_small)
+        return state
+
+    @torch.no_grad()
+    def step_chunk_small(self, frames_u8: np.ndarray, state: BankState, start_idx: int):
+        """Frames ``start_idx .. start_idx + N - 1``: one batched encode, then
+        sequential propagation with in-place bank writes. Returns
+        ((N, hd, wd) uint8 feature-resolution masks on the device, state)."""
+        feats = self.encode(frames_u8)
+        n = feats.shape[0]
+        masks = torch.empty((n, self.hd, self.wd), dtype=torch.uint8, device=self.device)
+        for i in range(n):
+            t = start_idx + i
+            label = torch.argmax(self._propagate(feats[i], state, t), dim=0)
+            self._write(state, t % self.cfg.capacity, feats[i], label)
+            masks[i] = label.view(self.hd, self.wd)
+        return masks, state

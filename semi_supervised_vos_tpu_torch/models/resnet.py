@@ -1,0 +1,146 @@
+"""ResNet backbones with the reference's stride-8 VOS topology, as torch
+modules with the reference's parameter names (``conv1``, ``bn1``,
+``layer1..4``, blocks ``conv{1,2,3}``/``bn{1,2,3}``/``downsample.{0,1}``).
+
+Topology (reference ``src/model/backbone/resnet.py``):
+  * stage strides (1, 2, 1, 1) → overall stride 8;
+  * layer4 is built with ``planes=256``, so a bottleneck backbone ends at
+    1024 channels and layer4's first block has no downsample branch
+    (``inplanes == planes * 4`` and stride 1).
+
+Layout is NCHW, the reference's.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+STAGE_PLANES = (64, 128, 256, 256)
+STAGE_STRIDES = (1, 2, 1, 1)
+ARCH_LAYERS = {
+    "resnet18": (2, 2, 2, 2),
+    "resnet50": (3, 4, 6, 3),
+    "resnet101": (3, 4, 23, 3),
+}
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+
+
+class BasicBlock(nn.Module):
+    """Reference ``resnet.py:28-57``."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 3, stride)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = (
+            nn.Sequential(_conv(inplanes, planes, 1, stride), nn.BatchNorm2d(planes))
+            if downsample
+            else None
+        )
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return self.relu(out + residual)
+
+
+class Bottleneck(nn.Module):
+    """Reference ``resnet.py:60-96`` (stride on the 3x3)."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 1)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3, stride)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = _conv(planes, planes * 4, 1)
+        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = (
+            nn.Sequential(_conv(inplanes, planes * 4, 1, stride), nn.BatchNorm2d(planes * 4))
+            if downsample
+            else None
+        )
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return self.relu(out + residual)
+
+
+class ResNet(nn.Module):
+    """conv1..layer4 of the VOS ResNet (the reference keeps children [0:8])."""
+
+    def __init__(self, block: str, layers: Sequence[int]):
+        super().__init__()
+        block_cls = BasicBlock if block == "basic" else Bottleneck
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        inplanes = 64
+        for stage, (planes, blocks, stride) in enumerate(
+            zip(STAGE_PLANES, layers, STAGE_STRIDES), start=1
+        ):
+            mods = []
+            for b in range(blocks):
+                s = stride if b == 0 else 1
+                has_ds = b == 0 and (s != 1 or inplanes != planes * block_cls.expansion)
+                mods.append(block_cls(inplanes, planes, s, has_ds))
+                inplanes = planes * block_cls.expansion
+            setattr(self, f"layer{stage}", nn.Sequential(*mods))
+        self.out_channels = inplanes
+
+    def children_for_vos(self):
+        """The eight children the reference's ``nn.Sequential`` keeps."""
+        return [self.conv1, self.bn1, self.relu, self.maxpool,
+                self.layer1, self.layer2, self.layer3, self.layer4]
+
+
+def resnet(model: str) -> ResNet:
+    """resnet18 (basic blocks) or resnet50 / resnet101 (bottlenecks)."""
+    if model not in ARCH_LAYERS:
+        raise NotImplementedError(f"model {model!r} is not ported")
+    block = "basic" if model == "resnet18" else "bottleneck"
+    return ResNet(block, ARCH_LAYERS[model])
+
+
+def out_spatial(h: int, w: int) -> Tuple[int, int]:
+    """Stride-8 output size for an (h, w) input (torch conv arithmetic)."""
+
+    def one(n: int) -> int:
+        n = (n + 2 * 3 - 7) // 2 + 1  # conv1 k7 s2 p3
+        n = (n + 2 * 1 - 3) // 2 + 1  # maxpool k3 s2 p1
+        n = (n + 2 * 1 - 3) // 2 + 1  # layer2 first 3x3 s2 p1
+        return n
+
+    return one(h), one(w)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Reference initialisation (``resnet.py:134-140``) drawn from an explicit
+    generator: convs ~ N(0, 2 / fan_out), BN weight 1 and bias 0."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+                m.weight.normal_(0.0, (2.0 / fan_out) ** 0.5, generator=generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()

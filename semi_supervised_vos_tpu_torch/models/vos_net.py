@@ -1,0 +1,41 @@
+"""VOSNet: stride-8 backbone + 256-d embedding head (reference
+``src/model/vos_net.py:9-54``).
+
+  * ``resnet18``: the bare truncated backbone (it already ends at 256
+    channels);
+  * ``resnet50`` / ``resnet101``: backbone (1024 channels) → 1x1 conv
+    ``adjust_dim`` to 256 → BatchNorm ``bn256``.
+
+``backbone`` is an ``nn.Sequential`` of the ResNet's first eight children,
+so the state-dict keys are the reference's: ``backbone.0`` (conv1),
+``backbone.1`` (bn1), ``backbone.4..7`` (layer1..4), ``adjust_dim``,
+``bn256``. The ``facebook`` variant is not ported.
+"""
+
+from __future__ import annotations
+
+from torch import nn
+
+from semi_supervised_vos_tpu_torch.models.resnet import resnet
+
+MODEL_NAMES = ("resnet18", "resnet50", "resnet101")
+
+
+class VOSNet(nn.Module):
+    """256-d per-pixel embeddings: (B, 3, H, W) → (B, 256, ceil(H/8), ceil(W/8))."""
+
+    def __init__(self, model: str = "resnet50"):
+        super().__init__()
+        if model not in MODEL_NAMES:
+            raise NotImplementedError(f"model {model!r} is not ported; one of {MODEL_NAMES}")
+        self.model = model
+        self.backbone = nn.Sequential(*resnet(model).children_for_vos())
+        if model != "resnet18":
+            self.adjust_dim = nn.Conv2d(1024, 256, 1, bias=False)
+            self.bn256 = nn.BatchNorm2d(256)
+
+    def forward(self, x):
+        x = self.backbone(x)
+        if self.model != "resnet18":
+            x = self.bn256(self.adjust_dim(x))
+        return x

@@ -1,0 +1,40 @@
+"""Nearest-neighbour resize with torch ``F.interpolate(mode='nearest')``
+index arithmetic: output pixel ``o`` reads input pixel
+``min(floor(o * in / out), in - 1)``, computed in exact integer arithmetic.
+Channels-last layout ``(..., H, W, C)`` by default, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def _nearest_indices(out_size: int, in_size: int, device=None) -> torch.Tensor:
+    o = torch.arange(out_size, device=device, dtype=torch.int64)
+    return torch.clamp((o * in_size) // out_size, max=in_size - 1)
+
+
+def nearest_resize(
+    x: torch.Tensor, out_hw: Tuple[int, int], hw_axes: Tuple[int, int] = (-3, -2)
+) -> torch.Tensor:
+    """Resize the two spatial axes of ``x`` (a gather, same dtype)."""
+    h_ax = hw_axes[0] % x.ndim
+    w_ax = hw_axes[1] % x.ndim
+    rows = _nearest_indices(out_hw[0], x.shape[h_ax], x.device)
+    cols = _nearest_indices(out_hw[1], x.shape[w_ax], x.device)
+    return x.index_select(h_ax, rows).index_select(w_ax, cols)
+
+
+def nearest_resize_host(x, out_hw: Tuple[int, int], hw_axes: Tuple[int, int] = (0, 1)) -> np.ndarray:
+    """NumPy twin of :func:`nearest_resize` for host-side mask upsampling
+    (the same integer index mapping)."""
+    x = np.asarray(x)
+    h_ax = hw_axes[0] % x.ndim
+    w_ax = hw_axes[1] % x.ndim
+    rows = np.minimum(np.arange(out_hw[0]) * x.shape[h_ax] // out_hw[0], x.shape[h_ax] - 1)
+    cols = np.minimum(np.arange(out_hw[1]) * x.shape[w_ax] // out_hw[1], x.shape[w_ax] - 1)
+    x = np.take(x, rows, axis=h_ax)
+    return np.take(x, cols, axis=w_ax)
