@@ -10,15 +10,30 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
   2. the bank-affinity kernel against its plain float32 version: the
      16x20-grid numerics recipe (single video, two lockstep videos, two
      row_base shards in stats mode, combined) and the 480p shape, timed;
-  3. the fused bottleneck kernel against its plain float32 version at both
+  3. ``affinity_propagate_fused`` (the propagation over a gathered
+     reference set) against its plain version on the recipes of
+     ``tests/test_pallas_affinity.py``, the 16x20 grid and the 480p shape,
+     timed; K = 20 slots through both affinity entry points;
+  4. probability mode (no spatial prior) at 480p: both affinity ops timed
+     beside ``scaled_dot_product_attention``, which computes the same
+     function there, and checked against it;
+  5. the fused bottleneck kernel against its plain float32 version at both
      480p geometries (C/C4 512/128 and 1024/256), N = 1 and 8, timed beside
      three cuDNN convolutions doing the same block;
-  4. the BN-folded bf16 encoder (11 bottleneck launches) against the
+  6. the BN-folded bf16 encoder (11 bottleneck launches) against the
      unfolded float32 module on one 480x854 frame;
-  5. the main path: ``inference`` (default device) then ``evaluation`` on a
+  7. the main path: ``inference`` (default device) then ``evaluation`` on a
      synthetic 480p DAVIS tree with random resnet50 weights; the launch
      counters show that every frame went through both kernels; the card's
-     masks are held against the CPU engine's on a small clip.
+     masks are held against the CPU engine's on a small clip; the same
+     tree again with ``-n 20``;
+  8. ``affinity_propagate_fused``'s own path: a video propagated through it
+     frame by frame, as a user of the library op would, against the
+     engine's masks;
+  9. the strategies: all seven through the CLI at 480p, ``--probability``
+     with ``single`` and with ``hor-flip`` under each ``--fusion``, each
+     with its launch counts, J&F and frames/s; card masks against the CPU
+     engine's on a small clip for probability mode and hor-flip.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them, the one before that a JSON summary of every kernel.
@@ -43,8 +58,13 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 AFFINITY_GATE = 3.4e-5  # max_abs of the bank kernel vs float32 (JAX on-chip gate)
 STATS_GATE = 3.2e-5  # combined stats shards vs float32 (JAX on-chip gate)
+# scaled_dot_product_attention returns bf16: half an ulp at 1.0 is 2e-3, and
+# it rounds the softmax weights to bf16 before their product with the labels
+SDPA_GATE = 4e-3
 ENCODER_MIN_COS = 0.9999
 H480, W480 = 480, 854
+SMALL_CLIP = (120, 214, 12)  # h, w, frames of the card-vs-CPU mask checks
+STRATEGY_FRAMES = 17  # 16 propagated frames: two whole chunks, past frame 15's dense/sparse switch
 
 
 def log(msg: str) -> None:
@@ -90,6 +110,20 @@ def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"FAILED: {what}")
     log(f"  ok: {what}")
+
+
+def affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes):
+    """Least time (ms) of one propagation of a P-pixel frame over K slots,
+    counting the work this frame's data needs: the similarity (2·K·P²·C) and
+    its exp for every pair; the label product (2·D a pair) where the prior
+    is not below exp(-36), which is every pair in probability mode (inverse
+    sigma² 0); the prior's exp only where a slot has one."""
+    y = torch.arange(p, device=dev, dtype=torch.float32) / wd
+    dy2 = (y[:, None] - y[None, :]) ** 2
+    near = [int((dy2 * float(s) < 36.0).sum()) for s in inv_sigma2]
+    ops = 2.0 * k * p * p * c + 2.0 * sum(near) * d
+    exps = k * p * p + sum(n for n, s in zip(near, inv_sigma2) if s > 0)
+    return bound(ops, nbytes, exps)
 
 
 # ---- phase 2: affinity ---------------------------------------------------
@@ -168,21 +202,151 @@ def affinity_phase(torch, dev, rng):
     check(max_abs <= AFFINITY_GATE and agree >= 0.999, f"affinity 480p <= {AFFINITY_GATE} / 0.999")
     ms = time_ms(run_kernel)
     plain_ms = time_ms(run_plain)
-    # work this frame's data needs: the similarity over every sampled row,
-    # the label product only where the prior is not below exp(-36)
     _, inv_sigma2, _ = aff.slot_table(slots, valid, dense, 8.0, 21.0, True)
-    y = torch.arange(p, device=dev, dtype=torch.float32) / wd
-    near = sum(int(((y[:, None] - y[None, :]) ** 2 * float(s) < 36.0).sum()) for s in inv_sigma2)
-    ops = 2.0 * k * p * p * c + 2.0 * near * d
-    exps = k * p * p + near  # e for every pair, the prior w where it is not skipped
     nbytes = k * p * (c + d_pad) * 2 + p * c * 4 + d_pad * p * 4
-    b_ms, b_by = bound(ops, nbytes, exps)
+    b_ms, b_by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes)
     log(f"affinity 480p: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     res.update(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return res
 
 
-# ---- phase 3: bottleneck -------------------------------------------------
+# ---- phase 3: the propagation over a gathered set -------------------------
+
+
+def propagate_phase(torch, dev, rng):
+    from semi_supervised_vos_tpu_torch.core.sampling import sample_frames
+    from semi_supervised_vos_tpu_torch.ops import affinity as aff
+
+    d = 22
+
+    def inputs(k, hd, wd, c, std, n_cls, soft=False):
+        p = hd * wd
+        ref = torch.as_tensor(rng.standard_normal((k, p, c)) * std, dtype=torch.float32, device=dev)
+        tgt = torch.as_tensor(rng.standard_normal((p, c)) * std, dtype=torch.float32, device=dev)
+        if soft:
+            lab = torch.as_tensor(rng.dirichlet(np.ones(d), size=(k, p)), dtype=torch.float32, device=dev)
+        else:
+            lab = torch.nn.functional.one_hot(torch.as_tensor(rng.integers(0, n_cls, size=(k, p))), d)
+            lab = lab.float().to(dev)
+        return ref, tgt, lab
+
+    def compare(name, got, expect, min_agree=1.0):
+        max_abs = (got - expect).abs().max().item()
+        agree = (got.argmax(0) == expect.argmax(0)).double().mean().item()
+        log(f"propagate {name}: max_abs={max_abs:.3e} argmax_agreement={agree}")
+        check(max_abs <= AFFINITY_GATE and agree >= min_agree, f"propagate {name} <= {AFFINITY_GATE} / {min_agree}")
+        return max_abs
+
+    worst = 0.0
+    # the recipes of tests/test_pallas_affinity.py
+    recipes = [(f"6x8 T1.9 frame {t} spatial {sp}", (9, 6, 8, 32, t, 1.9, sp, False))
+               for t in (3, 9, 20) for sp in (True, False)]
+    recipes += [("4x8 float32 labels", (4, 4, 8, 16, 4, 1.0, True, True)),
+                ("5x7 padded", (3, 5, 7, 16, 3, 1.0, True, False))]
+    for name, (k, hd, wd, c, t, temp, spatial, f32) in recipes:
+        ref, tgt, lab = inputs(k, hd, wd, c, 0.3, 5, soft=f32)
+        _, valid, dense = sample_frames(t, 40, k)
+        if f32:
+            dense = np.ones(k, bool)
+        kw = dict(feature_hw=(hd, wd), temperature=temp, valid=valid, dense=dense, spatial=spatial,
+                  label_dtype=torch.float32 if f32 else torch.bfloat16)
+        worst = max(worst, compare(name, aff.affinity_propagate_fused(ref, tgt, lab, **kw),
+                                   aff.affinity_propagate_fused_plain(ref, tgt, lab, **kw)))
+
+    k, c, cap = 9, 256, 45
+    idx, valid, dense = sample_frames(50, 40, k)
+    hd, wd = 16, 20
+    ref, tgt, lab = inputs(k, hd, wd, c, 0.2, d)
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense)
+    worst = max(worst, compare("16x20", aff.affinity_propagate_fused(ref, tgt, lab, **kw),
+                               aff.affinity_propagate_fused_plain(ref, tgt, lab, **kw)))
+
+    # K = 20 slots through both entry points (inference -n 20), all valid
+    idx20, valid20, dense20 = sample_frames(40, 40, 20)
+    kw20 = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid20, dense=dense20)
+    bank = torch.as_tensor(rng.standard_normal((cap, hd * wd, c)) * 0.2, dtype=torch.float32).to(dev, torch.bfloat16)
+    cls = torch.as_tensor(rng.integers(0, d, size=(cap, hd * wd)))
+    blab = torch.nn.functional.one_hot(cls, 24).to(dev, torch.bfloat16)
+    btgt = tgt.to(torch.bfloat16).float()
+    slots20 = idx20 % cap
+    got = aff.affinity_from_bank(bank, blab, btgt, slots20, **kw20)[:d]
+    expect = aff.affinity_from_bank_plain(bank[:, None].float(), blab[:, None].float(), btgt[None], slots20, **kw20)
+    worst = max(worst, compare("K=20 affinity_from_bank", got, expect[0, :d]))
+    sel = torch.as_tensor(slots20, device=dev)
+    args20 = (bank[sel], btgt, blab[sel][..., :d])
+    worst = max(worst, compare("K=20 affinity_propagate_fused", aff.affinity_propagate_fused(*args20, **kw20),
+                               aff.affinity_propagate_fused_plain(*args20, **kw20)))
+
+    # the 480p shape, timed
+    hd, wd = 60, 107
+    p = hd * wd
+    ref, tgt, lab = inputs(k, hd, wd, c, 0.2, d)
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense)
+    run_kernel = lambda: aff.affinity_propagate_fused(ref, tgt, lab, **kw)  # noqa: E731
+    run_plain = lambda: aff.affinity_propagate_fused_plain(ref, tgt, lab, **kw)  # noqa: E731
+    worst = max(worst, compare("480p 60x107", run_kernel(), run_plain(), min_agree=0.999))
+    ms = time_ms(run_kernel)
+    plain_ms = time_ms(run_plain)
+    _, inv_sigma2, _ = aff.slot_table(np.arange(k), valid, dense, 8.0, 21.0, True)
+    nbytes = (k * p * (c + d) + p * c) * 4 + d * p * 4  # float32 ref, labels and target in; scores out
+    b_ms, b_by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes)
+    log(f"propagate 480p: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# ---- phase 4: probability mode beside scaled_dot_product_attention ---------
+
+
+def probability_phase(torch, dev, rng):
+    """At 480p with the prior off, one attention call computes the same
+    function: queries the target pixels, keys the K·P sampled bank rows (the
+    temperature, 1 here, would scale them), values their labels; the invalid
+    slots a -inf mask would drop are left out of the keys (none at frame
+    50). The keys and values are gathered before the timed call."""
+    import torch.nn.functional as F
+
+    from semi_supervised_vos_tpu_torch.core.sampling import sample_frames
+    from semi_supervised_vos_tpu_torch.ops import affinity as aff
+
+    c, d, d_pad, cap, k, hd, wd = 256, 22, 24, 45, 9, 60, 107
+    p = hd * wd
+    idx, valid, dense = sample_frames(50, 40, k)
+    slots = idx % cap
+    bank = torch.as_tensor(rng.standard_normal((cap, p, c)) * 0.2, dtype=torch.float32).to(dev, torch.bfloat16)
+    cls = torch.as_tensor(rng.integers(0, d, size=(cap, p)))
+    labels = torch.nn.functional.one_hot(cls, d_pad).to(dev, torch.bfloat16)
+    tgt = torch.as_tensor(rng.standard_normal((p, c)) * 0.2, dtype=torch.float32).to(dev, torch.bfloat16)
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense, spatial=False)
+    sel = torch.as_tensor(slots[valid], device=dev)
+    ref, ref_lab = bank[sel].contiguous(), labels[sel][..., :d].contiguous()
+    q = tgt[None, None]
+    keys = bank[sel].reshape(1, 1, -1, c)
+    values = labels[sel].reshape(1, 1, -1, d_pad)
+    tgt32 = tgt.float()
+
+    run_bank = lambda: aff.affinity_from_bank(bank, labels, tgt32, slots, **kw)  # noqa: E731
+    run_fused = lambda: aff.affinity_propagate_fused(ref, tgt, ref_lab, **kw)  # noqa: E731
+    run_library = lambda: F.scaled_dot_product_attention(q, keys, values, scale=1.0)  # noqa: E731
+    expect = aff.affinity_from_bank_plain(bank[:, None].float(), labels[:, None].float(), tgt32[None], slots,
+                                          **kw)[0, :d]
+    res = {}
+    for name, got in (("affinity_bank", run_bank()[:d]), ("affinity_propagate", run_fused()),
+                      ("scaled_dot_product_attention", run_library()[0, 0, :, :d].float().T)):
+        max_abs = (got - expect).abs().max().item()
+        gate = SDPA_GATE if name == "scaled_dot_product_attention" else AFFINITY_GATE
+        log(f"probability mode 480p {name} vs plain float32: max_abs={max_abs:.3e}")
+        check(max_abs <= gate, f"probability mode {name} <= {gate}")
+    res["bank_ms"] = time_ms(run_bank)
+    res["fused_ms"] = time_ms(run_fused)
+    res["library_ms"] = time_ms(run_library)
+    nbytes = k * p * (c + d_pad) * 2 + p * c * 2 + d_pad * p * 4
+    res["bound_ms"], res["bound_by"] = affinity_bound(torch, dev, k, p, wd, c, d, np.zeros(k), nbytes)
+    log(f"probability mode 480p: affinity_bank {res['bank_ms']:.4f} ms, affinity_propagate {res['fused_ms']:.4f} ms, "
+        f"scaled_dot_product_attention {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return res
+
+
+# ---- phase 5: bottleneck -------------------------------------------------
 
 
 def bottleneck_phase(torch, dev, rng):
@@ -243,7 +407,7 @@ def bottleneck_phase(torch, dev, rng):
     return dict(max_abs_err=worst, bound_by=per_geom[(1024, 8)]["by"], **batch)
 
 
-# ---- phases 4 and 5: encoder and main path --------------------------------
+# ---- phases 6 to 9: encoder, main path, kernel 3's path, strategies ------
 
 
 def random_vosnet(torch, seed: int):
@@ -356,24 +520,14 @@ def encoder_phase(torch, dev, net, frame_u8):
 def main_path_phase(torch, dev, work: Path, net, videos: dict):
     from PIL import Image
 
-    from semi_supervised_vos_tpu_torch.__main__ import cli
     from semi_supervised_vos_tpu_torch.eval.evaluation import evaluation_command_impl
     from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
     from semi_supervised_vos_tpu_torch.models.convert import save_torch_checkpoint
-    from semi_supervised_vos_tpu_torch.ops.affinity import affinity_from_bank_batched
-    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block
 
     ckpt, save = work / "resnet50.pth.tar", work / "pred"
     save_torch_checkpoint(net, ckpt)
-    args = ["inference", "-d", str(work / "davis"), "-r", str(ckpt), "-s", str(save)]
-    affinity_from_bank_batched.launches = 0
-    bottleneck_block.launches = 0
-    t0 = time.perf_counter()
-    cli(args, standalone_mode=False)  # default --device: cuda
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"affinity_bank": affinity_from_bank_batched.launches,
-                "bottleneck": bottleneck_block.launches}
+    # default --device: cuda
+    wall, launches = cli_run(torch, ["inference", "-d", str(work / "davis"), "-r", str(ckpt), "-s", str(save)])
     n_frames = sum(videos.values())
     chunk = chunk_len()
     encode_batches = sum(1 + math.ceil((n - 1) / chunk) for n in videos.values())
@@ -384,6 +538,7 @@ def main_path_phase(torch, dev, work: Path, net, videos: dict):
         classes = sorted(set().union(*(np.unique(np.asarray(Image.open(p))).tolist() for p in pngs[1:])))
         check(classes == [0, 1, 2], f"{video}: the predicted masks carry both objects ({classes})")
     check(launches["affinity_bank"] == n_frames - len(videos), "one affinity launch per propagated frame")
+    check(launches["affinity_propagate"] == 0, "no affinity_propagate_fused launch on the main path")
     check(launches["bottleneck"] == 11 * encode_batches, f"11 bottleneck launches x {encode_batches} encode batches")
     j, f, jf = evaluation_command_impl(work / "davis" / "Annotations" / "480p", save)
     log(f"main path J={j:.6f} F={f:.6f} J&F={jf:.6f}")
@@ -422,20 +577,29 @@ def engine_timing(torch, dev, net, work: Path, video: str, n: int):
     return ms
 
 
-def small_clip_parity(torch, dev, net, work: Path):
-    """Card (bf16, both kernels) vs CPU (float32, golden) engine masks on the
-    long video's first 12 frames shrunk to 120x214, past a ring wrap
-    (frame_range 6): they differ only where bf16 moves a near-tie."""
+def shrunk_clip(work: Path, n: int, h: int, w: int):
+    """The long video's first n frames (bilinear) and first annotation
+    (nearest) shrunk to h x w. Shrinking keeps the frames smooth; a clip
+    drawn at this size has per-pixel noise on which the bf16 encoder alone
+    moves 2.5 % of the masks (see PERF.md)."""
     from PIL import Image
 
-    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
-
-    h, w, n = 120, 214, 12
     src = work / "davis"
     frames = np.stack([np.asarray(Image.open(src / "JPEGImages" / "480p" / "long" / f"{t:05d}.jpg")
                                   .resize((w, h), Image.BILINEAR)) for t in range(n)])
     label = np.asarray(Image.open(src / "Annotations" / "480p" / "long" / "00000.png")
                        .resize((w, h), Image.NEAREST)).astype(np.int32)
+    return frames, label
+
+
+def small_clip_parity(torch, dev, net, work: Path):
+    """Card (bf16, both kernels) vs CPU (float32, golden) engine masks on the
+    long video's first 12 frames shrunk to 120x214, past a ring wrap
+    (frame_range 6): they differ only where bf16 moves a near-tie."""
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
+
+    h, w, n = SMALL_CLIP
+    frames, label = shrunk_clip(work, n, h, w)
     cfg = EngineConfig(frame_range=6)
     out = {}
     for device in ("cpu", dev):
@@ -449,6 +613,197 @@ def small_clip_parity(torch, dev, net, work: Path):
     log(f"small clip {h}x{w}, {n} frames: CPU mask classes {classes}, card vs CPU mask agreement {agree:.6f}")
     check(classes == [0, 1, 2], "the CPU engine's masks carry both objects")
     check(agree >= 0.98, "card masks agree with the CPU engine on >= 98% of pixels")
+
+
+def load_video(work: Path, tree: str, video: str, n: int):
+    from PIL import Image
+
+    root = work / tree
+    frames = np.stack([np.asarray(Image.open(root / "JPEGImages" / "480p" / video / f"{t:05d}.jpg"))
+                       for t in range(n)])
+    label = np.asarray(Image.open(root / "Annotations" / "480p" / video / "00000.png")).astype(np.int32)
+    return frames, label
+
+
+def propagate_path(torch, dev, net, work: Path, video: str, n: int):
+    """affinity_propagate_fused's own path: the video propagated frame by
+    frame through the library op, as a caller of ``core.affinity_propagate``
+    would (features kept per frame, the sampled set gathered, the argmax
+    one-hot appended), from the engine's encoder features; its masks held
+    against the engine's (the bank kernel on the same bf16 inputs)."""
+    from semi_supervised_vos_tpu_torch.core.sampling import sample_frames
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
+    from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
+    from semi_supervised_vos_tpu_torch.ops import affinity as aff
+    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block
+    from semi_supervised_vos_tpu_torch.ops.onehot import index_to_onehot
+    from semi_supervised_vos_tpu_torch.ops.resize import nearest_resize
+
+    frames, label = load_video(work, "strategies", video, n)
+    cfg = EngineConfig()
+    engine = PropagationEngine(net, (H480, W480), cfg, dev)
+    chunk = chunk_len()
+    state = engine.start_video(frames[0], label)
+    engine_masks = [engine.step_chunk_small(frames[s : s + chunk], state, s)[0] for s in range(1, n, chunk)]
+    engine_masks = torch.cat(engine_masks).reshape(n - 1, -1)
+    # the same encode batches as the engine's, so the features are the same
+    feats = torch.cat([engine.encode(frames[:1])] + [engine.encode(frames[s : s + chunk]) for s in range(1, n, chunk)])
+    label_small = nearest_resize(torch.as_tensor(label, device=dev)[:, :, None], (engine.hd, engine.wd))
+    labels = [index_to_onehot(label_small.reshape(-1), cfg.num_classes)]
+    masks = []
+    aff.affinity_from_bank_batched.launches = aff.affinity_propagate_fused.launches = 0
+    bottleneck_block.launches = 0
+    t0 = time.perf_counter()
+    for t in range(1, n):
+        idx, valid, dense = sample_frames(t, cfg.frame_range, cfg.ref_num)
+        sel = torch.as_tensor(idx, device=dev)
+        pred = aff.affinity_propagate_fused(
+            feats[sel], feats[t], torch.stack(labels)[sel], feature_hw=(engine.hd, engine.wd),
+            temperature=cfg.temperature, valid=valid, dense=dense,
+        )
+        masks.append(pred.argmax(0))
+        labels.append(index_to_onehot(masks[-1], cfg.num_classes))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"affinity_bank": aff.affinity_from_bank_batched.launches,
+                "affinity_propagate": aff.affinity_propagate_fused.launches, "bottleneck": bottleneck_block.launches}
+    agree = (torch.stack(masks) == engine_masks).double().mean().item()
+    classes = torch.unique(torch.stack(masks)).tolist()
+    log(f"affinity_propagate_fused path: {n - 1} frames in {wall:.3f} s, launches {launches}, "
+        f"mask classes {classes}, agreement with the engine's masks {agree:.6f}")
+    check(launches == {"affinity_bank": 0, "affinity_propagate": n - 1, "bottleneck": 0},
+          "one affinity_propagate_fused launch per propagated frame, no other kernel")
+    check(classes == [0, 1, 2], "its masks carry both objects")
+    check(agree >= 0.999, "its masks agree with the engine's on >= 99.9% of pixels")
+    return launches["affinity_propagate"]
+
+
+# (name, extra CLI flags, streams); 3-scale's three passes count as streams
+STRATEGY_RUNS = [
+    ("single", [], 1),
+    ("hor-flip", ["--inference-strategy", "hor-flip"], 2),
+    ("vert-flip", ["--inference-strategy", "vert-flip"], 2),
+    ("2-scale", ["--inference-strategy", "2-scale"], 2),
+    ("hor-2-scale", ["--inference-strategy", "hor-2-scale"], 2),
+    ("multimodel", ["--inference-strategy", "multimodel"], 2),
+    ("3-scale", ["--inference-strategy", "3-scale"], 3),
+    ("single --probability", ["--probability"], 1),
+    ("hor-flip --probability --fusion mean", ["--inference-strategy", "hor-flip", "--probability"], 2),
+    ("hor-flip --probability --fusion maximum",
+     ["--inference-strategy", "hor-flip", "--probability", "--fusion", "maximum"], 2),
+    ("hor-flip --probability --fusion minimum",
+     ["--inference-strategy", "hor-flip", "--probability", "--fusion", "minimum"], 2),
+]
+
+
+def cli_run(torch, args):
+    """One ``inference`` through the CLI with every launch count set to 0
+    just before it: (seconds, {kernel: launches})."""
+    from semi_supervised_vos_tpu_torch.__main__ import cli
+    from semi_supervised_vos_tpu_torch.ops import affinity as aff
+    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block
+
+    aff.affinity_from_bank_batched.launches = aff.affinity_propagate_fused.launches = 0
+    bottleneck_block.launches = 0
+    t0 = time.perf_counter()
+    cli(args, standalone_mode=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, {"affinity_bank": aff.affinity_from_bank_batched.launches,
+                  "affinity_propagate": aff.affinity_propagate_fused.launches, "bottleneck": bottleneck_block.launches}
+
+
+def check_outputs(save: Path, gt: Path, videos: dict, name: str) -> float:
+    """One PNG per frame, both objects in the predicted masks, J&F finite."""
+    from PIL import Image
+
+    from semi_supervised_vos_tpu_torch.eval.evaluation import evaluation_command_impl
+
+    for video, n in videos.items():
+        pngs = sorted((save / video).glob("*.png"))
+        check([p.name for p in pngs] == [f"{t:05d}.png" for t in range(n)], f"{name} {video}: one PNG per frame")
+        classes = sorted(set().union(*(np.unique(np.asarray(Image.open(p))).tolist() for p in pngs[1:])))
+        check(classes == [0, 1, 2], f"{name} {video}: the predicted masks carry both objects ({classes})")
+    _, _, jf = evaluation_command_impl(gt, save, processes=1)
+    check(math.isfinite(jf) and 0.0 <= jf <= 1.0, f"{name}: J&F {jf:.6f} finite in [0, 1]")
+    return jf
+
+
+def strategies_phase(torch, dev, work: Path, net, net2, n: int):
+    """Every strategy through the CLI on the card at 480p, on one n-frame
+    video; the launch counts are streams x propagated frames (the final
+    partial chunk of a multi-stream run is padded to a whole chunk) and 11 x
+    encode batches x streams."""
+    from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
+    from semi_supervised_vos_tpu_torch.models.convert import save_torch_checkpoint
+
+    tree = work / "strategies"
+    ckpt, ckpt2 = work / "resnet50.pth.tar", work / "resnet50_seed1.pth.tar"
+    save_torch_checkpoint(net2, ckpt2)
+    chunk = chunk_len()
+    chunks = math.ceil((n - 1) / chunk)
+    results = {}
+    for i, (name, flags, streams) in enumerate(STRATEGY_RUNS):
+        save = work / f"strategy{i}"
+        args = ["inference", "-d", str(tree), "-r", str(ckpt), "-s", str(save), *flags]
+        if "multimodel" in flags:
+            args += ["--additional-model", str(ckpt2)]
+        wall, launches = cli_run(torch, args)
+        propagated = chunks * chunk if streams == 2 else n - 1
+        expect = {"affinity_bank": streams * propagated, "affinity_propagate": 0,
+                  "bottleneck": 11 * streams * (1 + chunks)}
+        jf = check_outputs(save, tree / "Annotations" / "480p", {"clip": n}, name)
+        log(f"strategy {name}: {n} frames in {wall:.3f} s = {n / wall:.3f} fps end to end, J&F {jf:.6f}, "
+            f"launches {launches}")
+        check(launches == expect, f"{name}: launches {expect}")
+        results[name] = dict(fps=n / wall, seconds=wall, jf=jf, launches=launches)
+    return results
+
+
+def twenty_refs_run(torch, work: Path, videos: dict):
+    """``-n 20`` on the main path's tree: 20 reference slots a frame."""
+    save = work / "pred_n20"
+    args = ["inference", "-d", str(work / "davis"), "-r", str(work / "resnet50.pth.tar"), "-s", str(save), "-n", "20"]
+    wall, launches = cli_run(torch, args)
+    propagated = sum(videos.values()) - len(videos)
+    jf = check_outputs(save, work / "davis" / "Annotations" / "480p", videos, "-n 20")
+    log(f"-n 20: {sum(videos.values())} frames in {wall:.3f} s, J&F {jf:.6f}, launches {launches}")
+    check(launches["affinity_bank"] == propagated and launches["affinity_propagate"] == 0,
+          "-n 20: one affinity launch per propagated frame")
+
+
+def strategies_cpu_parity(torch, work: Path):
+    """Card vs CPU (``--device cpu``: float32, golden affinity) PNGs for
+    probability mode and for hor-flip, on the small clip of
+    :func:`small_clip_parity` written as a DAVIS tree, past a ring wrap
+    (``--frame_range 6``): they differ only where bf16 moves a near-tie."""
+    from PIL import Image
+
+    from semi_supervised_vos_tpu_torch.__main__ import cli
+    from semi_supervised_vos_tpu_torch.ops.onehot import davis_palette
+
+    h, w, n = SMALL_CLIP
+    tree = work / "small"
+    frames, label = shrunk_clip(work, n, h, w)
+    (tree / "JPEGImages" / "480p" / "small").mkdir(parents=True)
+    (tree / "Annotations" / "480p" / "small").mkdir(parents=True)
+    for t, frame in enumerate(frames):
+        Image.fromarray(frame).save(tree / "JPEGImages" / "480p" / "small" / f"{t:05d}.jpg", quality=92)
+    ann = Image.fromarray(label.astype(np.uint8), mode="P")
+    ann.putpalette(davis_palette().reshape(-1).tolist())
+    ann.save(tree / "Annotations" / "480p" / "small" / "00000.png")
+    base = ["inference", "-d", str(tree), "-r", str(work / "resnet50.pth.tar"), "--frame_range", "6"]
+    for name, flags in (("single --probability", ["--probability"]), ("hor-flip", ["--inference-strategy", "hor-flip"])):
+        out = {}
+        for device in ("cpu", "cuda"):
+            save = work / f"small_{device}_{flags[-1]}"
+            cli(base + ["-s", str(save), "--device", device, *flags], standalone_mode=False)
+            out[device] = np.stack([np.asarray(Image.open(save / "small" / f"{t:05d}.png")) for t in range(1, n)])
+        agree = float((out["cpu"] == out["cuda"]).mean())
+        classes = np.unique(out["cpu"]).tolist()
+        log(f"small clip {h}x{w}, {n} frames, {name}: CPU mask classes {classes}, card vs CPU agreement {agree:.6f}")
+        check(classes == [0, 1, 2], f"{name}: the CPU masks carry both objects")
+        check(agree >= 0.98, f"{name}: card masks agree with the CPU's on >= 98% of pixels")
 
 
 def main() -> int:
@@ -483,6 +838,8 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     aff = affinity_phase(torch, dev, rng)
+    prop = propagate_phase(torch, dev, rng)
+    prob = probability_phase(torch, dev, rng)
     bott = bottleneck_phase(torch, dev, rng)
 
     videos = {"long": 56, "short": 9}
@@ -500,15 +857,34 @@ def main() -> int:
         launches, fps, jf = main_path_phase(torch, dev, work, net, videos)
         engine_ms = engine_timing(torch, dev, net, work, "long", videos["long"])
         small_clip_parity(torch, dev, net, work)
+        twenty_refs_run(torch, work, videos)
+        make_davis_tree(work / "strategies", {"clip": STRATEGY_FRAMES}, (H480, W480), seed=2)
+        prop_launches = propagate_path(torch, dev, net, work, "clip", STRATEGY_FRAMES)
+        strategies = strategies_phase(torch, dev, work, net, calibrated_vosnet(torch, dev, 1, frames), STRATEGY_FRAMES)
+        strategies_cpu_parity(torch, work)
     log(f"main path on {card}: {fps:.3f} fps end to end (CLI, decode and PNG writes included), "
         f"{engine_ms:.4f} ms/frame on the device (decoded frames), J&F {jf:.6f}")
+    for name, r in strategies.items():
+        log(f"strategy {name} on {card}: {r['fps']:.3f} fps end to end over {STRATEGY_FRAMES} frames, J&F {r['jf']:.6f}")
 
+    # launches: the main path's (kernel 3: its own path's); launches_by_path:
+    # each strategy's run; prob_*: probability mode at 480p, where
+    # scaled_dot_product_attention computes the same function
+    by_path = {k: {name: r["launches"][k] for name, r in strategies.items()} for k in ("affinity_bank", "bottleneck")}
+    prob_keys = dict(prob_bound_ms=prob["bound_ms"], prob_bound_by=prob["bound_by"], prob_library_ms=prob["library_ms"])
     kernels = [
         dict(name="affinity_bank", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/affinity_bank.cu",
-             replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:355", launches=launches["affinity_bank"], **aff),
+             replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:355", launches=launches["affinity_bank"], **aff,
+             prob_ms=prob["bank_ms"], **prob_keys, launches_by_path=by_path["affinity_bank"]),
         dict(name="bottleneck", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/bottleneck.cu",
-             replaces="semi_supervised_vos_tpu/ops/bottleneck_pallas.py:121", launches=launches["bottleneck"], **bott),
+             replaces="semi_supervised_vos_tpu/ops/bottleneck_pallas.py:121", launches=launches["bottleneck"], **bott,
+             launches_by_path=by_path["bottleneck"]),
+        dict(name="affinity_propagate", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/affinity_bank.cu",
+             replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:612", launches=prop_launches, **prop,
+             prob_ms=prob["fused_ms"], **prob_keys),
     ]
+    print(json.dumps({"strategies": {name: dict(fps=r["fps"], seconds=r["seconds"], jf=r["jf"])
+                                     for name, r in strategies.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,9 @@
 ``src/inference.py:18-48``), on the PyTorch engine.
 
 ``--device`` takes ``cuda`` (the default) or ``cpu``; ``cuda`` without a
-card raises. Options of strategies and modes this port does not have yet
-raise a clear error: a strategy other than ``single``, ``--probability``,
-``--video-batch`` > 1, ``--bank-shards`` / ``--dp-shards`` > 1, and the
-``facebook`` model.
+card raises. All seven strategies run, in label and probability mode.
+Options this port does not have yet raise a clear error: ``--video-batch``
+> 1, ``--bank-shards`` / ``--dp-shards`` > 1, and the ``facebook`` model.
 """
 
 from __future__ import annotations
@@ -38,17 +37,17 @@ STRATEGIES = ["single", "hor-flip", "vert-flip", "2-scale", "multimodel", "hor-2
 @click.option("--device", type=click.Choice(["cuda", "cpu"]), default="cuda",
               help="Device to run computing on.")
 @click.option("--inference-strategy", type=click.Choice(STRATEGIES), default="single",
-              help="Inference strategy (only 'single' is ported).")
+              help="Inference strategy.")
 @click.option("--additional-model", type=click.Path(file_okay=True, dir_okay=True), required=False,
-              help="Path to the additional checkpoint (multimodel; not ported).")
+              help="Path to the additional checkpoint (multimodel).")
 @click.option("--additional-model-type", type=click.STRING, required=False, default="resnet50",
-              help="Type of additional model type (multimodel; not ported).")
+              help="Type of additional model type (multimodel).")
 @click.option("--probability/--no-probability", default=False, required=False,
-              help="Should probability or labels be propagated (only labels are ported).")
+              help="Should probability or labels be propagated.")
 @click.option("--scale", default=1.15, required=False, type=click.FLOAT,
-              help="Scale for 2nd image in 2-scale strategy (not ported).")
+              help="Scale for 2nd image in 2-scale strategy.")
 @click.option("--fusion", default="mean", type=click.Choice(["maximum", "minimum", "mean"]),
-              help="Fusion operation for probability propagation (not ported).")
+              help="Fusion operation for probability propagation.")
 @click.option("--video-batch", type=int, default=1, help="Lockstep videos (only 1 is ported).")
 @click.option("--bank-shards", type=int, default=1, help="Bank shards (only 1 is ported).")
 @click.option("--dp-shards", type=int, default=1, help="Data-parallel shards (only 1 is ported).")
@@ -58,45 +57,49 @@ def inference_command(ref_num, data, resume, model, temperature, frame_range, si
     try:
         inference_command_impl(
             ref_num, data, resume, model, temperature, frame_range, sigma_1, sigma_2, save, device,
-            inference_strategy=inference_strategy, probability_propagation=probability,
-            video_batch=video_batch, bank_shards=bank_shards, dp_shards=dp_shards,
+            inference_strategy=inference_strategy, additional_resume=additional_model,
+            additional_model_type=additional_model_type, probability_propagation=probability, scale=scale,
+            reduction=fusion, video_batch=video_batch, bank_shards=bank_shards, dp_shards=dp_shards,
         )
     except (NotImplementedError, RuntimeError) as err:
         raise click.ClickException(str(err)) from err
 
 
-def check_supported(model, inference_strategy, probability_propagation, video_batch, bank_shards, dp_shards) -> None:
-    """Raise NotImplementedError for an option this port does not run yet."""
-    if inference_strategy != "single":
-        raise NotImplementedError(f"--inference-strategy {inference_strategy} is not ported; only 'single' is")
-    if probability_propagation:
-        raise NotImplementedError("--probability is not ported; only label propagation is")
+def check_supported(model, inference_strategy, additional_resume, additional_model_type, video_batch,
+                    bank_shards, dp_shards) -> None:
+    """Raise NotImplementedError for an option this port does not run yet, and
+    a usage error for multimodel without its second checkpoint."""
     if video_batch != 1:
         raise NotImplementedError("--video-batch > 1 (the lockstep engine) is not ported")
     if bank_shards != 1 or dp_shards != 1:
         raise NotImplementedError("--bank-shards / --dp-shards > 1 (multi-device) are not ported")
-    if model == "facebook":
+    multimodel = inference_strategy == "multimodel"
+    if model == "facebook" or (multimodel and additional_model_type == "facebook"):
         raise NotImplementedError("--model facebook is not ported")
+    if multimodel and additional_resume is None:
+        raise click.UsageError("--inference-strategy multimodel needs --additional-model")
 
 
 def inference_command_impl(ref_num, data, resume, model, temperature, frame_range, sigma_1, sigma_2, save,
-                           device="cuda", inference_strategy="single", probability_propagation=False,
-                           video_batch=1, bank_shards=1, dp_shards=1, disable=False):
+                           device="cuda", inference_strategy="single", additional_resume=None,
+                           additional_model_type="resnet50", probability_propagation=False, scale=1.15,
+                           reduction="mean", video_batch=1, bank_shards=1, dp_shards=1, disable=False):
     """Reference ``src/inference.py:54-113``."""
-    check_supported(model, inference_strategy, probability_propagation, video_batch, bank_shards, dp_shards)
+    check_supported(model, inference_strategy, additional_resume, additional_model_type, video_batch,
+                    bank_shards, dp_shards)
     from semi_supervised_vos_tpu_torch.data.davis import InferenceDataset
+    from semi_supervised_vos_tpu_torch.infer import strategies
     from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig
-    from semi_supervised_vos_tpu_torch.infer.strategies import inference_single
     from semi_supervised_vos_tpu_torch.models.convert import load_torch_checkpoint
     from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
     from semi_supervised_vos_tpu_torch.utils.runtime import resolve_device
 
     dev = resolve_device(device)
     net = load_torch_checkpoint(resume, VOSNet(model))
-    dataset = InferenceDataset(str(Path(data) / "JPEGImages/480p"))
+    dataset = InferenceDataset(str(Path(data) / "JPEGImages/480p"), inference_strategy=inference_strategy, scale=scale)
     cfg = EngineConfig(
         ref_num=ref_num, frame_range=frame_range, temperature=temperature,
-        sigma_1=sigma_1, sigma_2=sigma_2,
+        sigma_1=sigma_1, sigma_2=sigma_2, probability_propagation=probability_propagation,
     )
     progress = None
     if not disable:
@@ -106,5 +109,20 @@ def inference_command_impl(ref_num, data, resume, model, temperature, frame_rang
             progress = tqdm(total=len(dataset)).update
         except ImportError:
             pass
-    inference_single(dataset, Path(data) / "Annotations/480p", save, net, cfg, dev, progress)
+    args = (dataset, Path(data) / "Annotations/480p", save, net)
+    if inference_strategy == "single":
+        strategies.inference_single(*args, cfg, dev, progress)
+    elif inference_strategy == "hor-flip":
+        strategies.inference_hor_flip(*args, cfg, dev, reduction, progress)
+    elif inference_strategy == "vert-flip":
+        strategies.inference_ver_flip(*args, cfg, dev, reduction, progress)
+    elif inference_strategy in ("2-scale", "hor-2-scale"):
+        strategies.inference_2_scale(*args, cfg, dev, scale, reduction, inference_strategy == "hor-2-scale", progress)
+    elif inference_strategy == "multimodel":
+        additional = load_torch_checkpoint(additional_resume, VOSNet(additional_model_type))
+        strategies.inference_multimodel(*args, additional, cfg, dev, reduction, progress)
+    elif inference_strategy == "3-scale":
+        strategies.inference_3_scale(*args, cfg, dev, scale, progress)
+    else:
+        raise ValueError(f"unknown --inference-strategy {inference_strategy}")
     logger.info("Inference done.")

@@ -1,7 +1,10 @@
 // Bank-direct label propagation for Hopper (sm_90a).
 //
-// Replaces the TPU kernel semi_supervised_vos_tpu/ops/affinity_pallas.py
-// (affinity_from_bank_batched, body _bank_kernel). Per target pixel q of
+// Replaces two TPU kernels of semi_supervised_vos_tpu/ops/affinity_pallas.py:
+// affinity_from_bank_batched (body _bank_kernel) and, launched on a gathered
+// reference set seen as a one-video bank with slots 0..K-1,
+// affinity_propagate_pallas (body _kernel; ops/affinity.py::
+// affinity_propagate_fused folds its temperature into the bank). Per target pixel q of
 // video b it streams the K sampled slots straight from the ring memory bank
 // by slot index (no gather) and computes, with an online softmax,
 //
@@ -24,7 +27,9 @@
 // whole sweep; each bank tile is loaded once per block. Both products run
 // on the tensor cores in bf16 with f32 accumulation (WMMA); the softmax
 // statistics and the accumulator live in shared memory. The slot indices,
-// validity biases and 1/sigma^2 arrive as launch arguments. A (bank tile,
+// validity biases and 1/sigma^2 arrive as a (3, K) int32 table in device
+// memory (the floats as their bits), so K has no fixed limit; every thread
+// of a block reads the same entry, once per bank tile. A (bank tile,
 // target tile) pair whose minimum row gap gives w <= exp(-36) skips its
 // numerator product (the far-tile skip of the TPU kernel, same threshold).
 // The TPU kernel rounds e w to bf16 once; here it is split into a bf16 hi
@@ -47,23 +52,17 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int kMaxSlots = 16;
 constexpr int TM = 64;        // bank rows per tile
 constexpr int TN = 32;        // target columns per block
 constexpr int kThreads = 256; // 8 warps
 constexpr float kNegInf = -1e30f;
 constexpr float kTileSkipThresh = 36.0f;
 
-struct SlotTable {
-  int slot[kMaxSlots];
-  float inv_sigma2[kMaxSlots];
-  float bias[kMaxSlots];
-};
-
 struct Params {
   const __nv_bfloat16* bank_feats;   // (cap, B, P_loc, C)
   const __nv_bfloat16* bank_labels;  // (cap, B, P_loc, D_pad)
   const __nv_bfloat16* target;       // (B, P, C), temperature folded in
+  const int* table;  // (3, K): slot, bits of inv_sigma2, bits of the slot bias
   float* out;    // (B, D_pad, P): acc / l, or raw acc in stats mode
   float* m_out;  // (B, P), stats mode only
   float* l_out;  // (B, P), stats mode only
@@ -94,7 +93,7 @@ __host__ __device__ inline Smem smem_layout(int c, int dw) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-affinity_bank_kernel(Params prm, SlotTable tab) {
+affinity_bank_kernel(Params prm) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int C = prm.c, DW = prm.dw, LDC = C + 16;
   const Smem lay = smem_layout(C, DW);
@@ -143,9 +142,10 @@ affinity_bank_kernel(Params prm, SlotTable tab) {
   for (int it = 0; it < n_iter; ++it) {
     const int ks = it / tiles_per_slot;
     const int lrow0 = (it - ks * tiles_per_slot) * TM;
-    const float inv_sigma2 = tab.inv_sigma2[ks];
-    const float slot_bias = tab.bias[ks];
-    const size_t slot_row0 = (size_t(tab.slot[ks]) * prm.batch + b) * prm.p_loc;
+    const int slot = __ldg(prm.table + ks);
+    const float inv_sigma2 = __int_as_float(__ldg(prm.table + prm.k + ks));
+    const float slot_bias = __int_as_float(__ldg(prm.table + 2 * prm.k + ks));
+    const size_t slot_row0 = (size_t(slot) * prm.batch + b) * prm.p_loc;
     const __nv_bfloat16* fbase = prm.bank_feats + slot_row0 * C;
     const __nv_bfloat16* lbase = prm.bank_labels + slot_row0 * prm.d_pad;
 
@@ -280,20 +280,21 @@ affinity_bank_kernel(Params prm, SlotTable tab) {
 }  // namespace
 
 // Launches the kernel on `stream`; returns a cudaError_t (0 on success).
-// slots / inv_sigma2 / bias are host arrays of length k (k <= 16).
+// `table` is a device array of 3 k int32: the k slots, then the bits of the
+// k inv_sigma2 and of the k slot biases (float32).
 extern "C" int affinity_bank_launch(
     const void* bank_feats, const void* bank_labels, const void* target,
-    void* out, void* m_out, void* l_out,
-    const int* slots, const float* inv_sigma2, const float* bias, int k,
+    void* out, void* m_out, void* l_out, const void* table, int k,
     int batch, int p_loc, int c, int d_pad, int p, int wd, int row_base,
     int return_stats, void* stream) {
-  if (k < 1 || k > kMaxSlots || c % 16 != 0 || d_pad % 8 != 0 || d_pad < 8 ||
+  if (k < 1 || c % 16 != 0 || d_pad % 8 != 0 || d_pad < 8 ||
       p < 1 || wd < 1 || batch < 1 || p_loc < 1)
     return int(cudaErrorInvalidValue);
   Params prm;
   prm.bank_feats = static_cast<const __nv_bfloat16*>(bank_feats);
   prm.bank_labels = static_cast<const __nv_bfloat16*>(bank_labels);
   prm.target = static_cast<const __nv_bfloat16*>(target);
+  prm.table = static_cast<const int*>(table);
   prm.out = static_cast<float*>(out);
   prm.m_out = static_cast<float*>(m_out);
   prm.l_out = static_cast<float*>(l_out);
@@ -307,17 +308,11 @@ extern "C" int affinity_bank_launch(
   prm.row_base = row_base;
   prm.k = k;
   prm.return_stats = return_stats;
-  SlotTable tab;
-  for (int i = 0; i < kMaxSlots; ++i) {
-    tab.slot[i] = i < k ? slots[i] : 0;
-    tab.inv_sigma2[i] = i < k ? inv_sigma2[i] : 0.f;
-    tab.bias[i] = i < k ? bias[i] : 0.f;
-  }
   const size_t smem = smem_layout(c, prm.dw).total;
   cudaError_t err = cudaFuncSetAttribute(
       affinity_bank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   dim3 grid((p + TN - 1) / TN, batch);
-  affinity_bank_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(prm, tab);
+  affinity_bank_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(prm);
   return int(cudaGetLastError());
 }

@@ -10,9 +10,12 @@ tensors **updated in place**: each propagated frame overwrites its slot
 its jitted step instead).
 
 Per chunk of frames: one batched encode, then a sequential propagate →
-argmax → one-hot write-back per frame. The sampling schedule runs on the
-host with Python ints; slots, validity and 1/σ² reach the affinity kernel as
-launch arguments, so no frame waits on a device→host copy. Masks stay on
+write-back per frame: the argmax one-hot, or in probability mode the soft
+scores themselves (reference ``src/utils/inference_utils.py:68``), with the
+spatial prior off. The sampling schedule runs on the host with Python ints;
+slots, validity and 1/σ² reach the affinity kernel through a small pinned
+table copied without a host wait, so no frame waits on a device→host copy.
+Masks (single stream) or raw scores (the multi-stream strategies) stay on
 the device until the chunk is done.
 
 Two paths, as in the JAX engine:
@@ -57,6 +60,7 @@ class EngineConfig:
     temperature: float = 1.0
     sigma_1: float = 8.0
     sigma_2: float = 21.0
+    probability_propagation: bool = False
     num_classes: int = DEFAULT.num_classes
     feature_dim: int = 256
     continuous_frame: int = DEFAULT.continuous_frame
@@ -95,8 +99,11 @@ class PropagationEngine:
             self.dtype = torch.float32
             self.label_dtype = torch.float32
             self.d_pad = cfg.num_classes
-            self._wd = spatial_weight((self.hd, self.wd), cfg.sigma_1, device=self.device)
-            self._ws = spatial_weight((self.hd, self.wd), cfg.sigma_2, device=self.device)
+            # probability mode has no spatial prior: no (P, P) matrices
+            self._wd = self._ws = None
+            if not cfg.probability_propagation:
+                self._wd = spatial_weight((self.hd, self.wd), cfg.sigma_1, device=self.device)
+                self._ws = spatial_weight((self.hd, self.wd), cfg.sigma_2, device=self.device)
 
     @torch.no_grad()
     def encode(self, frames_u8) -> torch.Tensor:
@@ -124,6 +131,7 @@ class PropagationEngine:
                 state.feats, state.labels, target.float(), slots,
                 feature_hw=(self.hd, self.wd), temperature=cfg.temperature,
                 valid=valid, dense=dense, sigma_1=cfg.sigma_1, sigma_2=cfg.sigma_2,
+                spatial=not cfg.probability_propagation,
             )
             return pred[: cfg.num_classes]
         sel = torch.as_tensor(slots, dtype=torch.long, device=self.device)
@@ -135,10 +143,23 @@ class PropagationEngine:
             weight_dense=self._wd, weight_sparse=self._ws,
         )
 
-    def _write(self, state: BankState, slot: int, feats: torch.Tensor, label_idx: torch.Tensor) -> None:
-        """Overwrite one whole bank slot in place."""
+    def _write(self, state: BankState, slot: int, feats: torch.Tensor, labels: torch.Tensor) -> None:
+        """Overwrite one whole bank slot in place with (P, C) features and
+        (P, D_pad) labels (cast to the bank's types)."""
         state.feats[slot].copy_(feats)
-        state.labels[slot].copy_(index_to_onehot(label_idx, self.d_pad, self.label_dtype))
+        state.labels[slot].copy_(labels)
+
+    def _step(self, target: torch.Tensor, state: BankState, frame_idx: int) -> torch.Tensor:
+        """Propagate one encoded (P, C) frame and write it into its slot: the
+        soft scores in probability mode, else the argmax one-hot. Returns the
+        (num_classes, P) float32 scores."""
+        pred = self._propagate(target, state, frame_idx)
+        if self.cfg.probability_propagation:
+            labels = torch.nn.functional.pad(pred.T, (0, self.d_pad - pred.shape[0]))
+        else:
+            labels = index_to_onehot(torch.argmax(pred, dim=0), self.d_pad, self.label_dtype)
+        self._write(state, frame_idx % self.cfg.capacity, target, labels)
+        return pred
 
     def init_state(self) -> BankState:
         cfg = self.cfg
@@ -155,7 +176,7 @@ class PropagationEngine:
         feats = self.encode(frame_u8[None])[0]
         label = torch.as_tensor(np.asarray(label_full, np.int64), device=self.device)
         label_small = nearest_resize(label[:, :, None], (self.hd, self.wd)).reshape(self.p)
-        self._write(state, 0, feats, label_small)
+        self._write(state, 0, feats, index_to_onehot(label_small, self.d_pad, self.label_dtype))
         return state
 
     @torch.no_grad()
@@ -167,8 +188,14 @@ class PropagationEngine:
         n = feats.shape[0]
         masks = torch.empty((n, self.hd, self.wd), dtype=torch.uint8, device=self.device)
         for i in range(n):
-            t = start_idx + i
-            label = torch.argmax(self._propagate(feats[i], state, t), dim=0)
-            self._write(state, t % self.cfg.capacity, feats[i], label)
-            masks[i] = label.view(self.hd, self.wd)
+            masks[i] = torch.argmax(self._step(feats[i], state, start_idx + i), dim=0).view(self.hd, self.wd)
         return masks, state
+
+    @torch.no_grad()
+    def step_chunk_scores(self, frames_u8: np.ndarray, state: BankState, start_idx: int):
+        """Like :meth:`step_chunk_small`, but returns the raw feature-resolution
+        scores ((N, num_classes, P) float32 on the device, state): the
+        multi-stream strategies fuse them across streams."""
+        feats = self.encode(frames_u8)
+        scores = [self._step(feats[i], state, start_idx + i) for i in range(feats.shape[0])]
+        return torch.stack(scores), state

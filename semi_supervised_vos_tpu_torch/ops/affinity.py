@@ -1,10 +1,17 @@
-"""Bank-direct fused affinity: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Fused affinity: the CUDA kernel's wrappers and their plain PyTorch
+versions.
 
-Port of ``semi_supervised_vos_tpu/ops/affinity_pallas.py::
-affinity_from_bank_batched`` (and its ``affinity_from_bank`` /
-``affinity_from_bank_stats`` wrappers). The kernel is
-``csrc/affinity_bank.cu``; see its header for the design and what bounds it.
+Ports of the two propagation kernels of
+``semi_supervised_vos_tpu/ops/affinity_pallas.py``, both on the one kernel
+``csrc/affinity_bank.cu`` (see its header for the design and what bounds
+it), each with its own launch counter:
+
+* ``affinity_from_bank_batched`` (and its ``affinity_from_bank`` /
+  ``affinity_from_bank_stats`` wrappers): the engine's op, reading the ring
+  bank by slot index;
+* ``affinity_propagate_pallas`` → :func:`affinity_propagate_fused`: the
+  same online softmax over a pre-gathered (K, P, C) reference set, launched
+  as a one-video bank with slots 0..K−1.
 
 Per target pixel, the K sampled slots stream straight from the ring bank by
 slot index: similarity ``ref·(T·tgt)`` with −1e30 biases on padded rows and
@@ -14,8 +21,8 @@ indices (``y = idx / wd`` fractional, rows offset by ``row_base``) and
 applied after the softmax, and the label aggregation. invσ² = 0 is
 probability mode.
 
-On a CPU tensor the wrapper runs :func:`affinity_from_bank_plain`; on a CUDA
-tensor it launches the kernel or raises.
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -27,7 +34,6 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
-MAX_SLOTS = 16
 
 
 def slot_table(
@@ -122,6 +128,61 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, valid, dense, *, feature_hw, sigma_1, sigma_2,
+                       spatial, row_base, return_stats):
+    """Check the arguments and launch ``csrc/affinity_bank.cu`` on the current
+    stream; ``tgt`` is the (B, P, C) bf16 target with the temperature folded
+    in. Returns the (B, D_pad, P) output, or (m, l, acc) in stats mode."""
+    dev = bank_feats.device
+    cap, b, p_loc, c = bank_feats.shape
+    d_pad = bank_labels.shape[-1]
+    hd, wd = feature_hw
+    p = hd * wd
+    _check(bank_feats, "bank_feats", torch.bfloat16, 4, dev)
+    _check(bank_labels, "bank_labels", torch.bfloat16, 4, dev)
+    _check(tgt, "target", torch.bfloat16, 3, dev)
+    if bank_labels.shape[:3] != (cap, b, p_loc) or d_pad % 8:
+        raise ValueError(f"bank_labels shape {tuple(bank_labels.shape)} does not match the bank")
+    if c % 16:
+        raise ValueError(f"feature width {c} must be a multiple of 16")
+    if tgt.shape != (b, p, c):
+        raise ValueError(f"target_feats must be ({b}, {p}, {c}), got {tuple(tgt.shape)}")
+    if p_loc < p and row_base == 0 and not return_stats:
+        raise ValueError(f"bank holds {p_loc} rows < P={p}: only a shard may")
+    slots, inv_sigma2, bias = slot_table(slots, valid, dense, sigma_1, sigma_2, spatial)
+    k = slots.shape[0]
+    if k < 1:
+        raise ValueError("no slots: the kernel takes K >= 1")
+    if slots.min() < 0 or slots.max() >= cap:
+        raise ValueError(f"slots {slots.tolist()} outside the bank's {cap} slots")
+    # (3, K) int32 in device memory: slots, then the float32 bits of 1/sigma^2
+    # and of the slot biases; copied from pinned memory without a host wait
+    table = np.stack([slots, inv_sigma2.view(np.int32), bias.view(np.int32)])
+    table = torch.from_numpy(table).pin_memory().to(dev, non_blocking=True)
+
+    out = torch.empty((b, d_pad, p), dtype=torch.float32, device=dev)
+    if return_stats:
+        m = torch.empty((b, p), dtype=torch.float32, device=dev)
+        l = torch.empty((b, p), dtype=torch.float32, device=dev)
+    from semi_supervised_vos_tpu_torch.ops._build import load
+
+    fn = load("affinity_bank").affinity_bank_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    err = fn(
+        bank_feats.data_ptr(), bank_labels.data_ptr(), tgt.data_ptr(), out.data_ptr(),
+        m.data_ptr() if return_stats else None, l.data_ptr() if return_stats else None,
+        table.data_ptr(), k,
+        b, p_loc, c, d_pad, p, wd, int(row_base), int(return_stats),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"affinity_bank kernel launch failed: cudaError {err}")
+    if return_stats:
+        return m, l, out
+    return out
+
+
 def affinity_from_bank_batched(
     bank_feats: torch.Tensor,
     bank_labels: torch.Tensor,
@@ -145,8 +206,8 @@ def affinity_from_bank_batched(
       bank_labels: (capacity, B, P_loc, D_pad) labels, D_pad % 8 == 0.
       target_feats: (B, P, C) current-frame features (any float dtype; the
         temperature is applied in float32, then rounded to the bank dtype).
-      slots: (K,) host ints, physical bank slots of the sampled frames
-        (K ≤ 16); valid / dense: (K,) host bools.
+      slots: (K,) host ints, physical bank slots of the sampled frames (any
+        K >= 1); valid / dense: (K,) host bools.
       feature_hw: the GLOBAL feature grid (hd, wd), P = hd·wd.
       row_base: global row index of this bank's first row (bank shards).
       return_stats: return (m (B, P), l (B, P), acc (B, D_pad, P)), the raw
@@ -156,68 +217,19 @@ def affinity_from_bank_batched(
       (B, D_pad, P) float32 scores (padded classes exactly 0), or the stats.
     """
     kw = dict(
-        feature_hw=feature_hw, temperature=temperature, valid=valid, dense=dense,
-        sigma_1=sigma_1, sigma_2=sigma_2, spatial=spatial, row_base=row_base,
-        return_stats=return_stats,
+        feature_hw=feature_hw, valid=valid, dense=dense, sigma_1=sigma_1, sigma_2=sigma_2,
+        spatial=spatial, row_base=row_base, return_stats=return_stats,
     )
     dev = bank_feats.device
     if dev.type == "cpu":
-        return affinity_from_bank_plain(bank_feats, bank_labels, target_feats, slots, **kw)
+        return affinity_from_bank_plain(bank_feats, bank_labels, target_feats, slots, temperature=temperature, **kw)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-
-    cap, b, p_loc, c = bank_feats.shape
-    d_pad = bank_labels.shape[-1]
-    hd, wd = feature_hw
-    p = hd * wd
-    _check(bank_feats, "bank_feats", torch.bfloat16, 4, dev)
-    _check(bank_labels, "bank_labels", torch.bfloat16, 4, dev)
-    if bank_labels.shape[:3] != (cap, b, p_loc) or d_pad % 8:
-        raise ValueError(f"bank_labels shape {tuple(bank_labels.shape)} does not match the bank")
-    if c % 16:
-        raise ValueError(f"feature width {c} must be a multiple of 16")
-    if target_feats.shape != (b, p, c) or target_feats.device != dev:
-        raise ValueError(f"target_feats must be ({b}, {p}, {c}) on {dev}, got {tuple(target_feats.shape)}")
-    if p_loc < p and row_base == 0 and not return_stats:
-        raise ValueError(f"bank holds {p_loc} rows < P={p}: only a shard may")
-    slots, inv_sigma2, bias = slot_table(slots, valid, dense, sigma_1, sigma_2, spatial)
-    k = slots.shape[0]
-    if not 1 <= k <= MAX_SLOTS:
-        raise ValueError(f"K={k} slots, the kernel takes 1..{MAX_SLOTS}")
-    if slots.min() < 0 or slots.max() >= cap:
-        raise ValueError(f"slots {slots.tolist()} outside the bank's {cap} slots")
-
+    if target_feats.device != dev:
+        raise ValueError(f"target_feats is on {target_feats.device}, expected {dev}")
     tgt = (target_feats.float() * temperature).to(torch.bfloat16).contiguous()
-    out = torch.empty((b, d_pad, p), dtype=torch.float32, device=dev)
-    if return_stats:
-        m = torch.empty((b, p), dtype=torch.float32, device=dev)
-        l = torch.empty((b, p), dtype=torch.float32, device=dev)
-    from semi_supervised_vos_tpu_torch.ops._build import load
-
-    lib = load("affinity_bank")
-    fn = lib.affinity_bank_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 6
-        + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float)]
-        + [ctypes.c_int] * 9
-        + [ctypes.c_void_p]
-    )
-    slots_c = (ctypes.c_int * k)(*slots.tolist())
-    inv_c = (ctypes.c_float * k)(*inv_sigma2.tolist())
-    bias_c = (ctypes.c_float * k)(*bias.tolist())
-    err = fn(
-        bank_feats.data_ptr(), bank_labels.data_ptr(), tgt.data_ptr(), out.data_ptr(),
-        m.data_ptr() if return_stats else None, l.data_ptr() if return_stats else None,
-        slots_c, inv_c, bias_c, k,
-        b, p_loc, c, d_pad, p, wd, int(row_base), int(return_stats),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"affinity_bank kernel launch failed: cudaError {err}")
+    out = _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, **kw)
     affinity_from_bank_batched.launches += 1
-    if return_stats:
-        return m, l, out
     return out
 
 
@@ -253,3 +265,132 @@ def affinity_from_bank_stats(bank_feats, bank_labels, target_feat, slots, *, row
         **kw,
     )
     return m[0], l[0], acc[0]
+
+
+# ---- the propagation over a pre-gathered reference set --------------------
+
+
+def _gathered_bank(ref_feats, target_feat, ref_labels, feature_hw, temperature, label_dtype):
+    """The gathered set as a one-video bank for ``csrc/affinity_bank.cu``,
+    with the TPU kernel's roundings: the temperature folded into ``ref`` in
+    float32 before the bf16 rounding, the target rounded to bf16, and the
+    labels rounded to ``label_dtype``. Float32 labels become a bf16 ``hi``
+    and ``lo`` half of one 2·D_pad-wide label block (the output is linear in
+    the labels, so the two output halves sum to the float32-label result to
+    ~16 bits). C is zero-padded to a multiple of 16, D to one of 8.
+
+    Returns (bank (K, 1, P, C16) bf16, labels (K, 1, P, D_pad or 2·D_pad)
+    bf16, target (1, P, C16) bf16, D_pad)."""
+    if label_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"label_dtype must be torch.bfloat16 or torch.float32, got {label_dtype}")
+    k, p, c = ref_feats.shape
+    d = ref_labels.shape[-1]
+    if target_feat.shape != (p, c) or ref_labels.shape[:2] != (k, p) or feature_hw[0] * feature_hw[1] != p:
+        raise ValueError(
+            f"shapes do not match: ref {tuple(ref_feats.shape)}, target {tuple(target_feat.shape)}, "
+            f"labels {tuple(ref_labels.shape)}, feature_hw {tuple(feature_hw)}"
+        )
+    c_pad, d_pad = -(-c // 16) * 16, -(-d // 8) * 8
+    pad_c = torch.nn.functional.pad
+    ref = pad_c((ref_feats.float() * temperature).to(torch.bfloat16), (0, c_pad - c))
+    tgt = pad_c(target_feat.to(torch.bfloat16), (0, c_pad - c))
+    lab = pad_c(ref_labels.float(), (0, d_pad - d))
+    hi = lab.to(torch.bfloat16)
+    if label_dtype == torch.float32:
+        hi = torch.cat([hi, (lab - hi.float()).to(torch.bfloat16)], dim=-1)
+    return ref[:, None].contiguous(), hi[:, None].contiguous(), tgt[None].contiguous(), d_pad
+
+
+def _fold_halves(out: torch.Tensor, d: int, d_pad: int) -> torch.Tensor:
+    """(1, D_pad or 2·D_pad, P) kernel output → (D, P): the hi and lo label
+    halves summed."""
+    out = out[0]
+    if out.shape[0] == d_pad:
+        return out[:d]
+    return out[:d] + out[d_pad : d_pad + d]
+
+
+def affinity_propagate_fused_plain(
+    ref_feats: torch.Tensor,
+    target_feat: torch.Tensor,
+    ref_labels: torch.Tensor,
+    *,
+    feature_hw: Tuple[int, int],
+    temperature: float,
+    valid=None,
+    dense=None,
+    sigma_1: float = 8.0,
+    sigma_2: float = 21.0,
+    spatial: bool = True,
+    label_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`affinity_propagate_fused`: the card
+    path's roundings (:func:`_gathered_bank`) and then
+    :func:`affinity_from_bank_plain` over slots 0..K−1, on any device."""
+    d = ref_labels.shape[-1]
+    bank, labels, tgt, d_pad = _gathered_bank(ref_feats, target_feat, ref_labels, feature_hw, temperature, label_dtype)
+    out = affinity_from_bank_plain(
+        bank, labels, tgt, np.arange(bank.shape[0]), feature_hw=feature_hw, temperature=1.0,
+        valid=valid, dense=dense, sigma_1=sigma_1, sigma_2=sigma_2, spatial=spatial,
+    )
+    return _fold_halves(out, d, d_pad)
+
+
+def affinity_propagate_fused(
+    ref_feats: torch.Tensor,
+    target_feat: torch.Tensor,
+    ref_labels: torch.Tensor,
+    *,
+    feature_hw: Tuple[int, int],
+    temperature: float,
+    valid=None,
+    dense=None,
+    sigma_1: float = 8.0,
+    sigma_2: float = 21.0,
+    spatial: bool = True,
+    label_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Fused drop-in for :func:`core.propagation.affinity_propagate`: the
+    port of ``semi_supervised_vos_tpu/ops/affinity_pallas.py::
+    affinity_propagate_pallas``.
+
+    Args:
+      ref_feats: (K, P, C) sampled reference features (any float dtype).
+      target_feat: (P, C) target features.
+      ref_labels: (K, P, D) label distribution.
+      feature_hw: (hd, wd) with hd·wd == P.
+      valid / dense: (K,) host bools (see ``core.sampling.sample_frames``).
+      spatial: False is probability propagation (no spatial prior).
+      label_dtype: torch.bfloat16 (the default) or torch.float32 labels.
+
+    Returns:
+      (D, P) float32 scores.
+
+    On a CPU tensor it runs :func:`affinity_propagate_fused_plain`. On a CUDA
+    tensor it launches ``csrc/affinity_bank.cu`` over the gathered set seen
+    as a one-video bank with slots 0..K−1 and temperature 1 (the function is
+    the same online softmax), or raises. That kernel also skips (bank tile,
+    target tile) pairs whose prior is below exp(−36), which the TPU kernel
+    does not; the skipped rows move a score by less than 2.3e-16.
+    """
+    kw = dict(feature_hw=feature_hw, temperature=temperature, valid=valid, dense=dense,
+              sigma_1=sigma_1, sigma_2=sigma_2, spatial=spatial, label_dtype=label_dtype)
+    dev = ref_feats.device
+    if dev.type == "cpu":
+        return affinity_propagate_fused_plain(ref_feats, target_feat, ref_labels, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for name, t in (("target_feat", target_feat), ("ref_labels", ref_labels)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    d = ref_labels.shape[-1]
+    bank, labels, tgt, d_pad = _gathered_bank(ref_feats, target_feat, ref_labels, feature_hw, temperature, label_dtype)
+    out = _launch_bank_kernel(
+        bank, labels, tgt, np.arange(bank.shape[0]), valid, dense, feature_hw=feature_hw,
+        sigma_1=sigma_1, sigma_2=sigma_2, spatial=spatial, row_base=0, return_stats=False,
+    )
+    affinity_propagate_fused.launches += 1
+    return _fold_halves(out, d, d_pad)
+
+
+affinity_propagate_fused.launches = 0

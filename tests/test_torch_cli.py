@@ -70,11 +70,15 @@ def test_cli_pngs_byte_identical_to_jax(davis_and_ckpt, tmp_path):
 
 
 def test_inference_path_never_imports_jax(davis_and_ckpt, tmp_path):
+    """The single path, then a two-stream strategy in probability mode."""
     root, ckpt = davis_and_ckpt
+    multi = ["--inference-strategy", "2-scale", "--probability", "--fusion", "maximum"]
     code = (
         "import sys\n"
         "from semi_supervised_vos_tpu_torch.__main__ import cli\n"
         f"cli({_inference_args(root, ckpt, tmp_path / 'out') + ['--device', 'cpu']!r}, standalone_mode=False)\n"
+        f"cli({_inference_args(root, ckpt, tmp_path / 'multi') + ['--device', 'cpu'] + multi!r}, "
+        "standalone_mode=False)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -85,6 +89,7 @@ def test_inference_path_never_imports_jax(davis_and_ckpt, tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("clean")
     assert len(list((tmp_path / "out").rglob("*.png"))) == 10
+    assert len(list((tmp_path / "multi").rglob("*.png"))) == 10
 
 
 def test_package_source_never_imports_jax():
@@ -114,10 +119,19 @@ def test_missing_card_is_an_error(davis_and_ckpt, tmp_path):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--inference-strategy", "hor-flip"], ["--probability"], ["--video-batch", "2"], ["--bank-shards", "2"]],
+    [["--model", "facebook"], ["--dp-shards", "2"], ["--video-batch", "2"], ["--bank-shards", "2"]],
 )
 def test_unported_options_raise(davis_and_ckpt, tmp_path, flags):
     root, ckpt = davis_and_ckpt
     res = CliRunner().invoke(cli, _inference_args(root, ckpt, tmp_path / "out") + ["--device", "cpu"] + flags)
     assert res.exit_code != 0
     assert "not ported" in res.output
+
+
+def test_multimodel_needs_its_second_checkpoint(davis_and_ckpt, tmp_path):
+    root, ckpt = davis_and_ckpt
+    flags = ["--device", "cpu", "--inference-strategy", "multimodel"]
+    res = CliRunner().invoke(cli, _inference_args(root, ckpt, tmp_path / "out") + flags)
+    assert res.exit_code != 0
+    assert "--additional-model" in res.output
+    assert not list(tmp_path.rglob("*.png"))

@@ -83,6 +83,61 @@ def test_bottleneck_kernel_matches_plain(card, nprng, n, h, w, c, c4):
     assert (got - expect).abs().max() / expect.abs().max() <= 2e-2
 
 
+@pytest.mark.parametrize(
+    "hd,wd,k,c,frame_idx,temperature,spatial,f32_labels",
+    [(6, 8, 9, 32, 3, 1.9, True, False), (6, 8, 9, 32, 20, 1.9, False, False), (4, 8, 4, 16, 4, 1.0, True, True),
+     (5, 7, 3, 16, 3, 1.0, True, False), (16, 20, 9, 256, 50, 1.0, True, False)],
+)
+def test_fused_kernel_matches_plain(card, nprng, hd, wd, k, c, frame_idx, temperature, spatial, f32_labels):
+    """``affinity_propagate_fused`` on the recipes of
+    ``tests/test_pallas_affinity.py`` and the 16x20 grid; float32 labels are
+    soft, so both bf16 label halves carry weight."""
+    p, d = hd * wd, 22
+    ref = torch.as_tensor(nprng.standard_normal((k, p, c)) * 0.3, dtype=torch.float32, device=card)
+    tgt = torch.as_tensor(nprng.standard_normal((p, c)) * 0.3, dtype=torch.float32, device=card)
+    if f32_labels:
+        labels = torch.as_tensor(nprng.dirichlet(np.ones(d), size=(k, p)), dtype=torch.float32, device=card)
+    else:
+        labels = torch.nn.functional.one_hot(torch.as_tensor(nprng.integers(0, 5, size=(k, p))), d).float().to(card)
+    _, valid, dense = sample_frames(frame_idx, 40, k)
+    kw = dict(feature_hw=(hd, wd), temperature=temperature, valid=valid, dense=dense, spatial=spatial,
+              label_dtype=torch.float32 if f32_labels else torch.bfloat16)
+    before = tap.affinity_propagate_fused.launches
+    got = tap.affinity_propagate_fused(ref, tgt, labels, **kw)
+    torch.cuda.synchronize()
+    assert tap.affinity_propagate_fused.launches == before + 1
+    expect = tap.affinity_propagate_fused_plain(ref, tgt, labels, **kw)
+    assert got.shape == expect.shape == (d, p)
+    torch.testing.assert_close(got, expect, rtol=1e-4, atol=3.4e-5)
+    assert (got.argmax(0) == expect.argmax(0)).all()
+
+
+@pytest.mark.parametrize("op", ["from_bank", "fused"])
+def test_twenty_slots_match_plain(card, nprng, op):
+    """K = 20 slots (``inference -n 20``), all valid, past the dense/sparse
+    switch, through each affinity entry point."""
+    hd, wd, c, d_pad, cap, k = 16, 20, 256, 24, 45, 20
+    p = hd * wd
+    feats, labels = _bank(nprng, card, cap, 1, p, c, d_pad)
+    feats, labels = feats[:, 0].contiguous(), labels[:, 0].contiguous()
+    tgt = torch.as_tensor(nprng.standard_normal((p, c)) * 0.2, dtype=torch.float32).to(card, torch.bfloat16).float()
+    idx, valid, dense = sample_frames(40, 40, k)
+    assert valid.all() and not dense.all()
+    slots = idx % cap
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense)
+    if op == "from_bank":
+        got = tap.affinity_from_bank(feats, labels, tgt, slots, **kw)
+        expect = tap.affinity_from_bank_plain(feats[:, None].float(), labels[:, None].float(), tgt[None], slots, **kw)[0]
+    else:
+        sel = torch.as_tensor(slots, device=card)
+        args = (feats[sel], tgt, labels[sel][..., :22])
+        got = tap.affinity_propagate_fused(*args, **kw)
+        expect = tap.affinity_propagate_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[:22], expect[:22], rtol=1e-4, atol=3.4e-5)
+    assert (got[:22].argmax(0) == expect[:22].argmax(0)).all()
+
+
 def test_card_tensors_never_take_the_plain_version(card):
     """A CUDA tensor the kernel does not take raises; it is not handed to the
     plain version."""
@@ -93,3 +148,6 @@ def test_card_tensors_never_take_the_plain_version(card):
     bank = torch.zeros((4, 1, 16, 32), device=card)  # float32
     with pytest.raises(TypeError, match="bfloat16"):
         tap.affinity_from_bank_batched(bank, bank, bank[0], [0], feature_hw=(4, 4), temperature=1.0)
+    ref = torch.zeros((2, 16, 32), device=card)
+    with pytest.raises(ValueError, match="target_feat is on cpu"):
+        tap.affinity_propagate_fused(ref, ref[0].cpu(), ref, feature_hw=(4, 4), temperature=1.0)
