@@ -6,20 +6,25 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
 ``{"ok": true, ...}`` line is printed only when every phase passed):
 
   1. device: the card's name and power limit, compute capability (9, 0),
-     and the build of every CUDA kernel of the main path (nvcc, sm_90a);
+     and the build of every CUDA kernel of the main path (nvcc, sm_90a),
+     with ptxas's register and spill lines;
   2. the bank-affinity kernel against its plain float32 version: the
      16x20-grid numerics recipe (single video, two lockstep videos, two
-     row_base shards in stats mode, combined) and the 480p shape, timed;
+     row_base shards in stats mode, combined), a ragged P, K = 1, one valid
+     slot of nine, C 16 and 32, two videos at 480p, the combine kernel
+     against its plain version, and the 480p shape, timed;
   3. ``affinity_propagate_fused`` (the propagation over a gathered
      reference set) against its plain version on the recipes of
-     ``tests/test_pallas_affinity.py``, the 16x20 grid and the 480p shape,
-     timed; K = 20 slots through both affinity entry points;
+     ``tests/test_pallas_affinity.py``, the 16x20 grid and the 480p shape
+     (also with float32 labels, a 48-wide label block), timed; K = 20 slots
+     through both affinity entry points;
   4. probability mode (no spatial prior) at 480p: both affinity ops timed
      beside ``scaled_dot_product_attention``, which computes the same
-     function there, and checked against it;
+     function there, and checked against it; two lockstep videos;
   5. the fused bottleneck kernel against its plain float32 version at both
      480p geometries (C/C4 512/128 and 1024/256), N = 1 and 8, timed beside
-     three cuDNN convolutions doing the same block;
+     three cuDNN convolutions doing the same block; the strategies' 69x123
+     and 54x97 grids and partial batches (N = 3), checked;
   6. the BN-folded bf16 encoder (11 bottleneck launches) against the
      unfolded float32 module on one 480x854 frame;
   7. the main path: ``inference`` (default device) then ``evaluation`` on a
@@ -35,8 +40,10 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
      with its launch counts, J&F and frames/s; card masks against the CPU
      engine's on a small clip for probability mode and hor-flip.
 
-The line before the last is the card's name and power limit as nvidia-smi
-reports them, the one before that a JSON summary of every kernel.
+Times are medians of 20 CUDA-event timings, printed with their p10-p90
+spread. The line before the last is the card's name and power limit as
+nvidia-smi reports them, the one before that a JSON summary of every
+kernel.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
-PEAK_F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
+MUFU_EXP_PER_CLOCK_PER_SM = 16  # ex2 results per clock per SM on compute capability 9.0
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 AFFINITY_GATE = 3.4e-5  # max_abs of the bank kernel vs float32 (JAX on-chip gate)
 STATS_GATE = 3.2e-5  # combined stats shards vs float32 (JAX on-chip gate)
@@ -79,8 +86,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn``."""
+class Timing(float):
+    """Median ms of a timing, carrying the spread of its reps (``lo`` and
+    ``hi``: the 10th and 90th percentiles)."""
+
+    def __new__(cls, times):
+        times = sorted(times)
+        self = super().__new__(cls, statistics.median(times))
+        pick = lambda f: times[min(len(times) - 1, int(round(f * (len(times) - 1))))]  # noqa: E731
+        self.lo, self.hi = pick(0.1), pick(0.9)
+        return self
+
+    def __format__(self, spec):
+        return f"{float(self):{spec}} [p10 {self.lo:{spec}}, p90 {self.hi:{spec}}]"
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> Timing:
+    """Median of ``reps`` CUDA-event timings of ``fn``, with their p10-p90
+    spread."""
     import torch
 
     for _ in range(warmup):
@@ -94,15 +117,32 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return Timing(times)
 
 
-def bound(tensor_ops: float, nbytes: float, f32_ops: float = 0.0):
-    """Least time (ms) for the work, and what sets it: bf16 tensor-core
-    operations plus float32 operations (exps) at their peak rates, or the
-    bytes at the memory rate."""
-    t_ops = (tensor_ops / PEAK_BF16_FLOPS + f32_ops / PEAK_F32_FLOPS) * 1e3
+def timing_keys(prefix: str, t: Timing) -> dict:
+    return {prefix: float(t), f"{prefix}_p10": t.lo, f"{prefix}_p90": t.hi}
+
+
+def mufu_exp_rate() -> float:
+    """exps per second of the card's MUFU pipe: MUFU_EXP_PER_CLOCK_PER_SM x
+    SMs x the maximum SM clock that nvidia-smi reports."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return MUFU_EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+def bound(tensor_ops: float, nbytes: float, exps: float = 0.0):
+    """Least time (ms) for the work, and what sets it: the largest of the
+    bf16 tensor-core operations at their peak rate, the exps at the MUFU
+    pipe's rate (both "operations") and the bytes at the memory rate."""
+    t_tensor = tensor_ops / PEAK_BF16_FLOPS * 1e3
+    t_exp = exps / mufu_exp_rate() * 1e3 if exps else 0.0
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(t_tensor, t_exp)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -114,15 +154,16 @@ def check(cond: bool, what: str) -> None:
 
 def affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes):
     """Least time (ms) of one propagation of a P-pixel frame over K slots,
-    counting the work this frame's data needs: the similarity (2·K·P²·C) and
-    its exp for every pair; the label product (2·D a pair) where the prior
-    is not below exp(-36), which is every pair in probability mode (inverse
-    sigma² 0); the prior's exp only where a slot has one."""
+    counting the work this frame's data needs: the similarity (2·K·P²·C)
+    and the softmax exp of every pair; the label product (2·D a pair) where
+    the prior is not below exp(-36), which is every pair in probability
+    mode (inverse sigma² 0); the prior factored into a row and a column
+    factor, 2·P − 1 + 2·wd − 1 exps for each slot that has one."""
     y = torch.arange(p, device=dev, dtype=torch.float32) / wd
     dy2 = (y[:, None] - y[None, :]) ** 2
     near = [int((dy2 * float(s) < 36.0).sum()) for s in inv_sigma2]
     ops = 2.0 * k * p * p * c + 2.0 * sum(near) * d
-    exps = k * p * p + sum(n for n, s in zip(near, inv_sigma2) if s > 0)
+    exps = k * p * p + sum(2 * p - 1 + 2 * wd - 1 for s in inv_sigma2 if s > 0)
     return bound(ops, nbytes, exps)
 
 
@@ -137,7 +178,7 @@ def affinity_phase(torch, dev, rng):
     idx, valid, dense = sample_frames(frame_idx, 40, k)
     slots = idx % cap
 
-    def make_bank(p, b=1):
+    def make_bank(p, b=1, c=c):
         feats = torch.as_tensor(rng.standard_normal((cap, b, p, c)) * 0.2, dtype=torch.float32)
         cls = torch.as_tensor(rng.integers(0, d, size=(cap, b, p)))
         labels = torch.nn.functional.one_hot(cls, d_pad).float()
@@ -188,6 +229,41 @@ def affinity_phase(torch, dev, rng):
     log(f"affinity (c) 16x20 stats shards: max_abs={max_abs:.3e} argmax_agreement={agree}")
     check(max_abs <= STATS_GATE and agree == 1.0, f"affinity stats shards <= {STATS_GATE} / 1.0")
 
+    # (e) the shapes the split design makes risky: a ragged P, K = 1, one
+    # valid slot of nine, C 16 and 32, two lockstep videos at 480p
+    one_valid = np.zeros(k, bool)
+    one_valid[k // 2] = True
+    extra = [("13x27 ragged P", (13, 27), 1, c, slots, valid, dense),
+             ("K=1", (16, 20), 1, c, slots[:1], np.ones(1, bool), np.ones(1, bool)),
+             ("one valid slot of nine", (16, 20), 1, c, slots, one_valid, dense),
+             ("C=16", (16, 20), 1, 16, slots, valid, dense),
+             ("C=32", (16, 20), 1, 32, slots, valid, dense),
+             ("480p B=2", (60, 107), 2, c, slots, valid, dense)]
+    for name, (eh, ew), eb, ec, eslots, evalid, edense in extra:
+        ekw = dict(feature_hw=(eh, ew), temperature=1.0, valid=evalid, dense=edense)
+        bf_e, bl_e, tgt_e = make_bank(eh * ew, eb, ec)
+        got = aff.affinity_from_bank_batched(bf_e, bl_e, tgt_e, eslots, **ekw)
+        expect = aff.affinity_from_bank_plain(bf_e.float(), bl_e.float(), tgt_e, eslots, **ekw)
+        max_abs, agree = compare(got, expect)
+        min_agree = 0.999 if eh == 60 else 1.0
+        log(f"affinity (e) {name}: max_abs={max_abs:.3e} argmax_agreement={agree}")
+        check(max_abs <= AFFINITY_GATE and agree >= min_agree, f"affinity {name} <= {AFFINITY_GATE} / {min_agree}")
+        check(bool((got[:, d:] == 0).all()), f"affinity {name}: padded classes exactly 0")
+
+    # (f) the combine kernel against its plain version, one part all invalid
+    sp, bp, pp = 5, 2, 351
+    pm = torch.as_tensor(rng.standard_normal((sp, bp, pp)) * 3, dtype=torch.float32, device=dev)
+    pm[1] = -1e30
+    pl = torch.as_tensor(rng.uniform(0.5, 50, (sp, bp, pp)), dtype=torch.float32, device=dev)
+    pacc = torch.as_tensor(rng.uniform(0, 1, (sp, bp, d_pad, pp)), dtype=torch.float32, device=dev) * pl[:, :, None]
+    for stats in (False, True):
+        got = aff.combine_partials(pm, pl, pacc, return_stats=stats)
+        expect = aff.combine_partials_plain(pm, pl, pacc, return_stats=stats)
+        got, expect = (got, expect) if stats else ((got,), (expect,))
+        rel = max(((g - e).abs().max() / e.abs().max()).item() for g, e in zip(got, expect))
+        log(f"affinity (f) combine kernel, stats={stats}: max_abs/max_ref={rel:.3e}")
+        check(rel <= 1e-6, f"combine kernel stats={stats} vs plain <= 1e-6 relative")
+
     # (d) the 480p shape (60 x 107 feature grid), timed
     hd, wd = 60, 107
     p = hd * wd
@@ -206,7 +282,8 @@ def affinity_phase(torch, dev, rng):
     nbytes = k * p * (c + d_pad) * 2 + p * c * 4 + d_pad * p * 4
     b_ms, b_by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes)
     log(f"affinity 480p: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    res.update(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    res.update(max_abs_err=max_abs, **timing_keys("ms", ms), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None)
     return res
 
 
@@ -285,13 +362,21 @@ def propagate_phase(torch, dev, rng):
     run_kernel = lambda: aff.affinity_propagate_fused(ref, tgt, lab, **kw)  # noqa: E731
     run_plain = lambda: aff.affinity_propagate_fused_plain(ref, tgt, lab, **kw)  # noqa: E731
     worst = max(worst, compare("480p 60x107", run_kernel(), run_plain(), min_agree=0.999))
+    # float32 labels at 480p: a 2·D_pad = 48-wide label block; soft labels
+    # with one dominant class, so both bf16 halves carry weight
+    soft = torch.as_tensor(rng.dirichlet(np.ones(d), size=(k, p)), dtype=torch.float32, device=dev)
+    lab48 = 0.6 * lab + 0.4 * soft
+    kw48 = dict(kw, label_dtype=torch.float32)
+    worst = max(worst, compare("480p float32 labels (D_pad 48)", aff.affinity_propagate_fused(ref, tgt, lab48, **kw48),
+                               aff.affinity_propagate_fused_plain(ref, tgt, lab48, **kw48), min_agree=0.999))
     ms = time_ms(run_kernel)
     plain_ms = time_ms(run_plain)
     _, inv_sigma2, _ = aff.slot_table(np.arange(k), valid, dense, 8.0, 21.0, True)
     nbytes = (k * p * (c + d) + p * c) * 4 + d * p * 4  # float32 ref, labels and target in; scores out
     b_ms, b_by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes)
     log(f"propagate 480p: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return dict(max_abs_err=worst, **timing_keys("ms", ms), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 # ---- phase 4: probability mode beside scaled_dot_product_attention ---------
@@ -336,13 +421,25 @@ def probability_phase(torch, dev, rng):
         gate = SDPA_GATE if name == "scaled_dot_product_attention" else AFFINITY_GATE
         log(f"probability mode 480p {name} vs plain float32: max_abs={max_abs:.3e}")
         check(max_abs <= gate, f"probability mode {name} <= {gate}")
+    # two lockstep videos at 480p, prior off
+    bank2 = torch.stack([bank, bank.roll(1, dims=1)], dim=1).contiguous()
+    labels2 = torch.stack([labels, labels.roll(1, dims=1)], dim=1).contiguous()
+    tgt2 = torch.stack([tgt32, tgt32.flip(0)])
+    got2 = aff.affinity_from_bank_batched(bank2, labels2, tgt2, slots, **kw)[:, :d]
+    expect2 = aff.affinity_from_bank_plain(bank2.float(), labels2.float(), tgt2, slots, **kw)[:, :d]
+    max_abs = (got2 - expect2).abs().max().item()
+    agree = (got2.argmax(1) == expect2.argmax(1)).double().mean().item()
+    log(f"probability mode 480p B=2 vs plain float32: max_abs={max_abs:.3e} argmax_agreement={agree}")
+    check(max_abs <= AFFINITY_GATE and agree >= 0.999, f"probability mode B=2 <= {AFFINITY_GATE} / 0.999")
     res["bank_ms"] = time_ms(run_bank)
     res["fused_ms"] = time_ms(run_fused)
     res["library_ms"] = time_ms(run_library)
     nbytes = k * p * (c + d_pad) * 2 + p * c * 2 + d_pad * p * 4
     res["bound_ms"], res["bound_by"] = affinity_bound(torch, dev, k, p, wd, c, d, np.zeros(k), nbytes)
     log(f"probability mode 480p: affinity_bank {res['bank_ms']:.4f} ms, affinity_propagate {res['fused_ms']:.4f} ms, "
-        f"scaled_dot_product_attention {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+        f"scaled_dot_product_attention {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+        f"affinity_bank / library {res['bank_ms'] / res['library_ms']:.3f}, "
+        f"affinity_propagate / library {res['fused_ms'] / res['library_ms']:.3f}")
     return res
 
 
@@ -399,11 +496,27 @@ def bottleneck_phase(torch, dev, rng):
             log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
                 f"(cos vs plain {lib_cos:.6f}), bound {b_ms:.4f} ms ({b_by})")
             per_geom[(c, n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, by=b_by)
+    # the strategies' other grids (2-scale 69x123, 3-scale 54x97), a partial
+    # encode batch (N = 3) and the tests' small grid: checked, not timed
+    for n, h, w, c, c4 in ((1, 69, 123, 1024, 256), (1, 54, 97, 512, 128), (3, 60, 107, 1024, 256),
+                           (3, 69, 123, 512, 128), (1, 13, 27, 512, 128)):
+        x = torch.as_tensor(rng.standard_normal((n, h, w, c)), dtype=torch.float32).to(dev, torch.bfloat16)
+        shapes = [(c, c4), (c4,), (3, 3, c4, c4), (c4,), (c4, c), (c,)]
+        scales = [math.sqrt(2 / c), 0.1, math.sqrt(2 / (9 * c4)), 0.1, math.sqrt(2 / c4), 0.1]
+        wts = [torch.as_tensor(rng.standard_normal(sh) * sc, dtype=torch.float32).to(
+            dev, torch.bfloat16 if i % 2 == 0 else torch.float32) for i, (sh, sc) in enumerate(zip(shapes, scales))]
+        got = bottleneck_block(x, *wts).float()
+        expect = bottleneck_block_plain(x.float(), *[t.float() for t in wts])
+        cos = F.cosine_similarity(got.flatten(), expect.flatten(), dim=0).item()
+        rel = ((got - expect).abs().max() / expect.abs().max()).item()
+        log(f"bottleneck N={n} {h}x{w} C={c} C4={c4}: cos={cos:.7f} max_abs/max_ref={rel:.3e}")
+        check(cos >= 0.9999 and rel <= 2e-2, f"bottleneck N={n} {h}x{w} C={c}: cos >= 0.9999, rel <= 2e-2")
     # the main path's encode batch (N = 8): 3 blocks at C=512 and 8 at C=1024
     batch = {key: 3 * per_geom[(512, 8)][key] + 8 * per_geom[(1024, 8)][key]
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     log(f"bottleneck per N=8 encode batch (11 launches): kernel {batch['ms']:.4f} ms, "
-        f"plain {batch['plain_ms']:.4f} ms, library {batch['library_ms']:.4f} ms, bound {batch['bound_ms']:.4f} ms")
+        f"plain {batch['plain_ms']:.4f} ms, library {batch['library_ms']:.4f} ms, bound {batch['bound_ms']:.4f} ms; "
+        f"kernel / library {batch['ms'] / batch['library_ms']:.3f}")
     return dict(max_abs_err=worst, bound_by=per_geom[(1024, 8)]["by"], **batch)
 
 
@@ -833,7 +946,7 @@ def main() -> int:
         + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("Compiling entry", "registers", "spill", "smem")):
                 log(f"  {name} ptxas: {line.strip()}")
 
     rng = np.random.default_rng(0)

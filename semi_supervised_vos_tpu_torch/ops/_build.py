@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/kernels/`` at the
 root of the checkout, then loaded with ``ctypes``. The library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-a stale library is never loaded. Nothing is built or imported until a
+carries a hash of its source, the shared headers beside it and the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded. Nothing is built or imported until a
 kernel is first needed (or :func:`build` is called), so the CPU-only tests
 import every module without a CUDA toolkit.
 """
@@ -46,10 +47,15 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where kernel ``name``'s library lives: its file name hashes
+    ``<name>.cu``, every header (``*.cuh``) beside it and the flags, so an
+    edit to a shared header rebuilds every library."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:

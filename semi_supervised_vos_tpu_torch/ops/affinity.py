@@ -4,7 +4,10 @@ versions.
 Ports of the two propagation kernels of
 ``semi_supervised_vos_tpu/ops/affinity_pallas.py``, both on the one kernel
 ``csrc/affinity_bank.cu`` (see its header for the design and what bounds
-it), each with its own launch counter:
+it), each with its own launch counter. The kernel splits the bank sweep
+over blocks and a second kernel of the same source combines the partial
+statistics (:func:`combine_partials`, plain version
+:func:`combine_partials_plain`); one op call is one count.
 
 * ``affinity_from_bank_batched`` (and its ``affinity_from_bank`` /
   ``affinity_from_bank_stats`` wrappers): the engine's op, reading the ring
@@ -28,12 +31,15 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 NEG_INF = -1e30
+MAX_WIDTH = 256  # feature widths the kernel takes (its target rows live in registers)
+LABEL_GROUP = 64  # label columns per sweep of the kernel
 
 
 def slot_table(
@@ -143,8 +149,8 @@ def _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, valid, dense, *, fe
     _check(tgt, "target", torch.bfloat16, 3, dev)
     if bank_labels.shape[:3] != (cap, b, p_loc) or d_pad % 8:
         raise ValueError(f"bank_labels shape {tuple(bank_labels.shape)} does not match the bank")
-    if c % 16:
-        raise ValueError(f"feature width {c} must be a multiple of 16")
+    if c % 16 or c > MAX_WIDTH:
+        raise ValueError(f"feature width {c} must be a multiple of 16 and at most {MAX_WIDTH}")
     if tgt.shape != (b, p, c):
         raise ValueError(f"target_feats must be ({b}, {p}, {c}), got {tuple(tgt.shape)}")
     if p_loc < p and row_base == 0 and not return_stats:
@@ -160,27 +166,102 @@ def _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, valid, dense, *, fe
     table = np.stack([slots, inv_sigma2.view(np.int32), bias.view(np.int32)])
     table = torch.from_numpy(table).pin_memory().to(dev, non_blocking=True)
 
-    out = torch.empty((b, d_pad, p), dtype=torch.float32, device=dev)
-    if return_stats:
-        m = torch.empty((b, p), dtype=torch.float32, device=dev)
-        l = torch.empty((b, p), dtype=torch.float32, device=dev)
+    lib = _library()
+    splits, ips = _plan(torch.cuda.current_device() if dev.index is None else dev.index, k, b, p_loc, c, p, wd)
+    # partial (m, l, acc) of each split of the bank sweep
+    pm = torch.empty((splits, b, p), dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    pacc = torch.empty((splits, b, d_pad, p), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # label columns in groups of at most LABEL_GROUP per sweep
+    for d_off in range(0, d_pad, LABEL_GROUP):
+        err = lib.affinity_bank_launch(
+            bank_feats.data_ptr(), bank_labels.data_ptr(), tgt.data_ptr(), pm.data_ptr(), pl.data_ptr(),
+            pacc.data_ptr(), table.data_ptr(), k, cap, b, p_loc, c, d_pad, d_off, min(LABEL_GROUP, d_pad - d_off),
+            p, wd, int(row_base), splits, ips, stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"affinity_bank kernel launch failed: cudaError {err}")
+    return _launch_combine(lib, pm, pl, pacc, return_stats)
+
+
+def _library():
+    """The loaded ``csrc/affinity_bank.cu`` library, its C signatures set."""
     from semi_supervised_vos_tpu_torch.ops._build import load
 
-    fn = load("affinity_bank").affinity_bank_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    err = fn(
-        bank_feats.data_ptr(), bank_labels.data_ptr(), tgt.data_ptr(), out.data_ptr(),
+    lib = load("affinity_bank")
+    if not getattr(lib, "signatures_set", False):
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.affinity_bank_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 2
+        lib.affinity_bank_launch.argtypes = [p] * 7 + [i] * 13 + [p]
+        lib.affinity_combine_launch.argtypes = [p] * 6 + [i] * 5 + [p]
+        for fn in (lib.affinity_bank_plan, lib.affinity_bank_launch, lib.affinity_combine_launch):
+            fn.restype = i
+        lib.signatures_set = True
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(device_index: int, k: int, b: int, p_loc: int, c: int, p: int, wd: int) -> Tuple[int, int]:
+    """(splits, iterations per split) of a sweep of this shape on this card."""
+    splits, ips = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _library().affinity_bank_plan(k, b, p_loc, c, p, wd, ctypes.byref(splits), ctypes.byref(ips))
+    if err != 0:
+        raise RuntimeError(f"affinity_bank plan failed: cudaError {err}")
+    return splits.value, ips.value
+
+
+def _launch_combine(lib, pm, pl, pacc, return_stats):
+    """The combine kernel of ``csrc/affinity_bank.cu`` on (S, B, P) / (S, B,
+    D_pad, P) partials: (B, D_pad, P) acc / l, or the combined (m, l, acc)."""
+    s, b, d_pad, p = pacc.shape
+    dev = pacc.device
+    out = torch.empty((b, d_pad, p), dtype=torch.float32, device=dev)
+    m = torch.empty((b, p), dtype=torch.float32, device=dev) if return_stats else None
+    l = torch.empty((b, p), dtype=torch.float32, device=dev) if return_stats else None
+    err = lib.affinity_combine_launch(
+        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
         m.data_ptr() if return_stats else None, l.data_ptr() if return_stats else None,
-        table.data_ptr(), k,
-        b, p_loc, c, d_pad, p, wd, int(row_base), int(return_stats),
-        torch.cuda.current_stream(dev).cuda_stream,
+        s, b, p, d_pad, int(return_stats), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"affinity_bank kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"affinity_combine kernel launch failed: cudaError {err}")
+    return (m, l, out) if return_stats else out
+
+
+def combine_partials_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, *, return_stats: bool = False):
+    """Plain PyTorch version of the combine kernel: partial online-softmax
+    statistics m (S, B, P), l (S, B, P), acc (S, B, D_pad, P) of S parts of
+    the bank sweep (slot groups or row ranges) → the unsplit (B, D_pad, P)
+    acc / l, or (m, l, acc) in stats mode, at float32:
+    ``m* = max m;  out = Σ acc·exp(m−m*) / Σ l·exp(m−m*)``."""
+    m_star = m.amax(dim=0)
+    w = torch.exp(m - m_star)
+    l_sum = (l * w).sum(dim=0)
+    acc_sum = (acc * w[:, :, None, :]).sum(dim=0)
     if return_stats:
-        return m, l, out
-    return out
+        return m_star, l_sum, acc_sum
+    return acc_sum / torch.clamp(l_sum, min=1e-30)[:, None, :]
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, *, return_stats: bool = False):
+    """The bank sweep's combine step on its own (arguments and results as
+    :func:`combine_partials_plain`): the plain version on a CPU tensor, the
+    combine kernel of ``csrc/affinity_bank.cu`` on a CUDA tensor. The
+    affinity ops run it inside each call; it has no launch counter of its
+    own."""
+    dev = m.device
+    if dev.type == "cpu":
+        return combine_partials_plain(m, l, acc, return_stats=return_stats)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    s, b, d_pad, p = acc.shape
+    for name, t, shape in (("m", m, (s, b, p)), ("l", l, (s, b, p)), ("acc", acc, (s, b, d_pad, p))):
+        _check(t, name, torch.float32, len(shape), dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    return _launch_combine(_library(), m, l, acc, return_stats)
 
 
 def affinity_from_bank_batched(

@@ -39,7 +39,8 @@ def _bank(nprng, card, cap, b, p, c, d_pad, n_cls=22):
 
 @pytest.mark.parametrize(
     "hd,wd,b,row_base,stats",
-    [(16, 20, 1, 0, False), (16, 20, 2, 0, False), (16, 20, 1, 160, True), (60, 107, 1, 0, False)],
+    [(16, 20, 1, 0, False), (16, 20, 2, 0, False), (16, 20, 1, 160, True), (60, 107, 1, 0, False),
+     (13, 27, 1, 0, False), (60, 107, 2, 0, False), (60, 107, 1, 3200, True)],
 )
 def test_affinity_kernel_matches_plain(card, nprng, hd, wd, b, row_base, stats):
     c, d_pad, cap, k = 256, 24, 45, 9
@@ -65,7 +66,11 @@ def test_affinity_kernel_matches_plain(card, nprng, hd, wd, b, row_base, stats):
         assert (got[0][:, 22:] == 0).all()  # padded classes exactly zero
 
 
-@pytest.mark.parametrize("n,h,w,c,c4", [(1, 60, 107, 512, 128), (2, 60, 107, 1024, 256), (1, 13, 27, 512, 128)])
+@pytest.mark.parametrize(
+    "n,h,w,c,c4",
+    [(1, 60, 107, 512, 128), (2, 60, 107, 1024, 256), (1, 13, 27, 512, 128), (1, 69, 123, 1024, 256),
+     (1, 54, 97, 512, 128), (3, 60, 107, 512, 128), (3, 13, 27, 1024, 256)],
+)
 def test_bottleneck_kernel_matches_plain(card, nprng, n, h, w, c, c4):
     x = torch.as_tensor(nprng.standard_normal((n, h, w, c)) * 0.5, dtype=torch.float32).to(card, torch.bfloat16)
     shapes = [(c, c4), (c4,), (3, 3, c4, c4), (c4,), (c4, c), (c,)]
@@ -110,6 +115,48 @@ def test_fused_kernel_matches_plain(card, nprng, hd, wd, k, c, frame_idx, temper
     assert got.shape == expect.shape == (d, p)
     torch.testing.assert_close(got, expect, rtol=1e-4, atol=3.4e-5)
     assert (got.argmax(0) == expect.argmax(0)).all()
+
+
+@pytest.mark.parametrize("case", ["k1", "one_valid", "c16", "c32", "d48"])
+def test_affinity_kernel_slot_and_width_cases(card, nprng, case):
+    """K = 1, one valid slot of nine, feature widths 16 and 32, and a
+    48-wide label block, against the plain version."""
+    hd, wd, cap, k = 16, 20, 45, 9
+    c = {"c16": 16, "c32": 32}.get(case, 256)
+    d_pad = 48 if case == "d48" else 24
+    p = hd * wd
+    feats, labels = _bank(nprng, card, cap, 1, p, c, d_pad, n_cls=40 if case == "d48" else 22)
+    tgt = torch.as_tensor(nprng.standard_normal((1, p, c)) * 0.2, dtype=torch.float32).to(card, torch.bfloat16).float()
+    idx, valid, dense = sample_frames(50, 40, k)
+    slots = idx % cap
+    if case == "k1":
+        slots, valid, dense = slots[:1], valid[:1], dense[:1]
+    if case == "one_valid":
+        valid = np.zeros(k, bool)
+        valid[4] = True
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense)
+    got = tap.affinity_from_bank_batched(feats, labels, tgt, slots, **kw)
+    torch.cuda.synchronize()
+    expect = tap.affinity_from_bank_plain(feats.float(), labels.float(), tgt, slots, **kw)
+    torch.testing.assert_close(got, expect, rtol=1e-4, atol=3.4e-5)
+    assert (got.argmax(1) == expect.argmax(1)).all()
+
+
+@pytest.mark.parametrize("stats", [False, True])
+def test_combine_kernel_matches_plain(card, nprng, stats):
+    """The combine kernel on random partials, one part all invalid (m =
+    -1e30)."""
+    s, b, d_pad, p = 5, 2, 24, 351
+    m = torch.as_tensor(nprng.standard_normal((s, b, p)) * 3, dtype=torch.float32, device=card)
+    m[1] = -1e30
+    l = torch.as_tensor(nprng.uniform(0.5, 50, (s, b, p)), dtype=torch.float32, device=card)
+    acc = torch.as_tensor(nprng.uniform(0, 1, (s, b, d_pad, p)), dtype=torch.float32, device=card) * l[:, :, None]
+    got = tap.combine_partials(m, l, acc, return_stats=stats)
+    torch.cuda.synchronize()
+    expect = tap.combine_partials_plain(m, l, acc, return_stats=stats)
+    got, expect = (got, expect) if stats else ((got,), (expect,))
+    for g, e in zip(got, expect):
+        torch.testing.assert_close(g, e, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("op", ["from_bank", "fused"])
