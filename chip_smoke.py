@@ -38,12 +38,23 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
   9. the strategies: all seven through the CLI at 480p, ``--probability``
      with ``single`` and with ``hor-flip`` under each ``--fusion``, each
      with its launch counts, J&F and frames/s; card masks against the CPU
-     engine's on a small clip for probability mode and hor-flip.
+     engine's on a small clip for probability mode and hor-flip;
+ 10. the lockstep engine (``--video-batch``): (a) ``--video-batch 8`` then
+     ``evaluation`` on 8 videos of 17 and 12 frames, one bank-kernel launch
+     per lockstep step, masks and frames/s against ``--video-batch 1``;
+     (b) every lockstep runner at ``--video-batch 2`` on two videos, launch
+     counts and masks against ``--video-batch 1``; (c) device ms per
+     lane-frame at B = 1 to 16, the bank kernel at B = 8 and 16 against its
+     plain version (timed at B = 8 against its bound, and beside
+     ``scaled_dot_product_attention`` in probability mode), the bottleneck
+     at N = 64; (d) device memory of one chunk at 480p and 1080p, and one
+     chunk at the lane cap under 85 % of the card's memory.
 
 Times are medians of 20 CUDA-event timings, printed with their p10-p90
 spread. The line before the last is the card's name and power limit as
 nvidia-smi reports them, the one before that a JSON summary of every
-kernel.
+kernel, and before that JSON lines for the strategies and the lockstep
+phase.
 """
 
 from __future__ import annotations
@@ -919,6 +930,320 @@ def strategies_cpu_parity(torch, work: Path):
         check(agree >= 0.98, f"{name}: card masks agree with the CPU's on >= 98% of pixels")
 
 
+# ---- phase 10: the lockstep engine (--video-batch) -------------------------
+
+
+def png_agreement(save_a: Path, save_b: Path, videos: dict, name: str) -> float:
+    """Both runs wrote one PNG per frame; the share of predicted pixels
+    (frames 1 on) on which they agree."""
+    from PIL import Image
+
+    same = total = 0
+    for video, n in videos.items():
+        for save in (save_a, save_b):
+            names = [p.name for p in sorted((save / video).glob("*.png"))]
+            check(names == [f"{t:05d}.png" for t in range(n)], f"{name} {save.name} {video}: one PNG per frame ({n})")
+        for t in range(1, n):
+            a = np.asarray(Image.open(save_a / video / f"{t:05d}.png"))
+            b = np.asarray(Image.open(save_b / video / f"{t:05d}.png"))
+            same += int((a == b).sum())
+            total += a.size
+    return same / total
+
+
+def lockstep_launches(engines, t_max: int) -> dict:
+    """Launches of one lockstep group whose engines are ``(frame_hw,
+    lanes)``: one bank-kernel launch per engine and step (the last chunk
+    padded to a whole chunk), 11 bottleneck launches per encode call (the
+    start, then each chunk's frames in calls of at most the lane cap)."""
+    from semi_supervised_vos_tpu_torch.infer.batched import _hbm_lanes_cap
+    from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
+
+    chunk = chunk_len()
+    chunks = math.ceil((t_max - 1) / chunk)
+    encodes = sum(1 + chunks * math.ceil(chunk / max(1, _hbm_lanes_cap(hw) // b)) for hw, b in engines)
+    return {"affinity_bank": len(engines) * chunks * chunk, "affinity_propagate": 0, "bottleneck": 11 * encodes}
+
+
+# (name, CLI flags, engines as (input scale, lanes per video)) of the 10b
+# runs; 2-scale's second engine and 3-scale's passes run at ceil(scale x
+# the frame size)
+LOCKSTEP_RUNS = [
+    ("hor-flip", ["--inference-strategy", "hor-flip"], [(1.0, 2)]),
+    ("hor-flip --probability --fusion mean", ["--inference-strategy", "hor-flip", "--probability"], [(1.0, 2)]),
+    ("vert-flip", ["--inference-strategy", "vert-flip"], [(1.0, 2)]),
+    ("2-scale", ["--inference-strategy", "2-scale"], [(1.0, 1), (1.15, 1)]),
+    ("hor-2-scale", ["--inference-strategy", "hor-2-scale"], [(1.0, 1), (1.15, 1)]),
+    ("multimodel", ["--inference-strategy", "multimodel"], [(1.0, 1)] * 2),
+    ("multimodel --probability", ["--inference-strategy", "multimodel", "--probability"], [(1.0, 1)] * 2),
+    ("3-scale", ["--inference-strategy", "3-scale"], [(0.9, 1), (1.0, 1), (1.15, 1)]),
+]
+
+
+def lockstep_cli(torch, work: Path, videos: dict):
+    """10a: ``--video-batch 8`` then ``evaluation`` on 8 videos of unequal
+    length, against ``--video-batch 1`` on the same tree; timed in turns
+    (1, 8, 8, 1) so that neither side alone meets shapes the process has not
+    run yet, and the second run of each compared."""
+    from PIL import Image
+
+    from semi_supervised_vos_tpu_torch.eval.evaluation import evaluation_command_impl
+
+    tree, ckpt = work / "lockstep", work / "resnet50.pth.tar"
+    n_frames = sum(videos.values())
+    walls = {1: [], 8: []}
+    for i, vb in enumerate((1, 8, 8, 1)):
+        args = ["inference", "-d", str(tree), "-r", str(ckpt), "-s", str(work / f"lockstep_{i}"), "--video-batch", str(vb)]
+        wall, launches = cli_run(torch, args)
+        walls[vb].append(wall)
+        if vb == 8 and len(walls[8]) == 1:
+            launches8, save8 = launches, work / f"lockstep_{i}"
+        if vb == 1 and len(walls[1]) == 1:
+            launches1, save1 = launches, work / f"lockstep_{i}"
+    expect = lockstep_launches([((H480, W480), 8)], max(videos.values()))
+    fps8, fps1 = n_frames / walls[8][1], n_frames / walls[1][1]
+    log(f"lockstep CLI, {n_frames} frames in turns 1, 8, 8, 1: --video-batch 8 "
+        + " and ".join(f"{w:.3f} s" for w in walls[8]) + ", --video-batch 1 "
+        + " and ".join(f"{w:.3f} s" for w in walls[1])
+        + f"; second runs: --video-batch 8 {fps8:.3f} fps, --video-batch 1 {fps1:.3f} fps end to end ({fps8 / fps1:.3f}x); "
+        f"launches {launches8} (--video-batch 1: {launches1})")
+    check(launches8 == expect, f"--video-batch 8: one bank-kernel launch per lockstep step, {expect}")
+    for video in videos:
+        classes = sorted(set().union(*(np.unique(np.asarray(Image.open(p))).tolist()
+                                       for p in sorted((save8 / video).glob("*.png"))[1:])))
+        check(classes == [0, 1, 2], f"--video-batch 8 {video}: the predicted masks carry both objects ({classes})")
+    agree = png_agreement(save8, save1, videos, "--video-batch 8 vs 1")
+    j, f, jf = evaluation_command_impl(tree / "Annotations" / "480p", save8)
+    log(f"--video-batch 8 vs 1: mask agreement {agree:.7f}; --video-batch 8 J={j:.6f} F={f:.6f} J&F={jf:.6f}")
+    check(agree >= 0.999, "--video-batch 8 masks agree with --video-batch 1 on >= 99.9% of pixels")
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in (j, f, jf)), "--video-batch 8 J&F finite in [0, 1]")
+    return dict(fps_vb8=fps8, fps_vb1=fps1, seconds_vb8=walls[8], seconds_vb1=walls[1], frames=n_frames,
+                steps=expect["affinity_bank"], agreement=agree, jf=jf, launches_vb8=launches8, launches_vb1=launches1)
+
+
+def lockstep_strategies(torch, work: Path, videos: dict):
+    """10b: every lockstep runner through the CLI at ``--video-batch 2`` on
+    a 2-video tree, against the same strategy at ``--video-batch 1``."""
+    tree = work / "lockstep2"
+    results = {}
+    for i, (name, flags, engines) in enumerate(LOCKSTEP_RUNS):
+        saves = {vb: work / f"lockstep2_{i}_vb{vb}" for vb in (2, 1)}
+        walls, launches = {}, {}
+        for vb, save in saves.items():
+            args = ["inference", "-d", str(tree), "-r", str(work / "resnet50.pth.tar"), "-s", str(save),
+                    "--video-batch", str(vb), *flags]
+            if "multimodel" in flags:
+                args += ["--additional-model", str(work / "resnet50_seed1.pth.tar")]
+            walls[vb], launches[vb] = cli_run(torch, args)
+        hws = [(int(np.ceil(H480 * sc)), int(np.ceil(W480 * sc))) for sc, _ in engines]
+        expect = lockstep_launches([(hw, 2 * lanes) for hw, (_, lanes) in zip(hws, engines)], max(videos.values()))
+        agree = png_agreement(saves[2], saves[1], videos, name)
+        log(f"lockstep {name} --video-batch 2: {walls[2]:.3f} s (--video-batch 1: {walls[1]:.3f} s), "
+            f"launches {launches[2]}, mask agreement with --video-batch 1 {agree:.7f}")
+        check(launches[2] == expect, f"lockstep {name}: launches {expect}")
+        check(agree >= 0.999, f"lockstep {name}: masks agree with --video-batch 1 on >= 99.9% of pixels")
+        results[name] = dict(launches=launches[2], agreement=agree, seconds_vb2=walls[2], seconds_vb1=walls[1])
+    return results
+
+
+def lockstep_engine_timing(torch, dev, net, work: Path, videos: dict):
+    """10c: device ms per lane-frame of the lockstep engine on decoded frames
+    (CUDA events around start_videos + two 8-step chunks) at B = 1 to 16."""
+    from semi_supervised_vos_tpu_torch.infer.batched import BatchedPropagationEngine
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig
+    from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
+
+    names = list(videos)
+    t_max = max(videos.values())
+    clips = {v: load_video(work, "lockstep", v, videos[v]) for v in names}
+    chunk = chunk_len()
+    out = {}
+    for b in (1, 2, 4, 8, 16):
+        lanes = [names[i % len(names)] for i in range(b)]
+        frames = np.stack([np.stack([clips[v][0][min(t, videos[v] - 1)] for v in lanes]) for t in range(t_max)])
+        labels = np.stack([clips[v][1] for v in lanes])
+        engine = BatchedPropagationEngine(net, (H480, W480), b, EngineConfig(), dev)
+
+        def run():
+            state = engine.start_videos(frames[0], labels)
+            for s in range(1, t_max, chunk):
+                _, state = engine.step_chunk_small(frames[s : s + chunk], state, s)
+
+        run()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        out[b] = start.elapsed_time(end) / (b * t_max)
+        log(f"lockstep engine B={b}: {out[b]:.4f} ms per lane-frame ({1000.0 / out[b]:.3f} lane-frames/s)")
+        del engine
+    return out
+
+
+def lockstep_kernels(torch, dev, rng):
+    """10c: both kernels at the lockstep shapes: the bank kernel at B = 8 and
+    16 against its plain version lane by lane (the plain version holds a
+    lane's (K, P, P) scores at once), timed at B = 8 against 8 x the B = 1
+    bound, and in probability mode beside ``scaled_dot_product_attention``
+    at batch 8; the bottleneck at N = 64 (a B = 8 chunk's encode call)
+    against its plain version, timed beside cuDNN."""
+    import torch.nn.functional as F
+
+    from semi_supervised_vos_tpu_torch.core.sampling import sample_frames
+    from semi_supervised_vos_tpu_torch.ops import affinity as aff
+    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block, bottleneck_block_plain
+
+    c, d, d_pad, cap, k, hd, wd = 256, 22, 24, 45, 9, 60, 107
+    p = hd * wd
+    idx, valid, dense = sample_frames(50, 40, k)
+    slots = idx % cap
+    res = {}
+    worst = 0.0
+    # banks of up to 16 lanes (1.2 G values): drawn on the card from a seed
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    for b in (8, 16):
+        feats = (torch.randn((cap, b, p, c), generator=gen, device=dev) * 0.2).to(torch.bfloat16)
+        labels = torch.nn.functional.one_hot(torch.randint(0, d, (cap, b, p), generator=gen, device=dev), d_pad)
+        labels = labels.to(torch.bfloat16)
+        tgt = (torch.randn((b, p, c), generator=gen, device=dev) * 0.2).to(torch.bfloat16).float()
+        for spatial in (True, False):
+            kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense, spatial=spatial)
+            got = aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw)[:, :d]
+            max_abs, agree = 0.0, 0.0
+            for lane in range(b):
+                expect = aff.affinity_from_bank_plain(feats[:, lane : lane + 1].float(), labels[:, lane : lane + 1].float(),
+                                                      tgt[lane : lane + 1], slots, **kw)[0, :d]
+                max_abs = max(max_abs, (got[lane] - expect).abs().max().item())
+                agree += (got[lane].argmax(0) == expect.argmax(0)).double().mean().item() / b
+                del expect
+            worst = max(worst, max_abs)
+            mode = "prior on" if spatial else "probability mode"
+            log(f"affinity B={b} 480p {mode}: max_abs={max_abs:.3e} argmax_agreement={agree:.7f}")
+            check(max_abs <= AFFINITY_GATE and agree >= 0.999, f"affinity B={b} {mode} <= {AFFINITY_GATE} / 0.999")
+        if b != 8:
+            continue
+        _, inv_sigma2, _ = aff.slot_table(slots, valid, dense, 8.0, 21.0, True)
+        nbytes = k * p * (c + d_pad) * 2 + p * c * 4 + d_pad * p * 4
+        b1_ms, by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes)
+        b1_prob, by_prob = affinity_bound(torch, dev, k, p, wd, c, d, np.zeros(k), nbytes)
+        kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense)
+        ms = time_ms(lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw))
+        prob_ms = time_ms(lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, spatial=False, **kw))
+        sel = torch.as_tensor(slots[valid], device=dev)
+        q = tgt.to(torch.bfloat16)[:, None]
+        keys = feats[sel].permute(1, 0, 2, 3).reshape(b, 1, -1, c).contiguous()
+        values = labels[sel].permute(1, 0, 2, 3).reshape(b, 1, -1, d_pad).contiguous()
+        run_library = lambda: F.scaled_dot_product_attention(q, keys, values, scale=1.0)  # noqa: E731
+        sdpa = run_library()[:, 0, :, :d].float().transpose(1, 2)
+        expect = aff.affinity_from_bank_batched(feats, labels, tgt, slots, spatial=False, **kw)[:, :d]
+        sdpa_err = (sdpa - expect).abs().max().item()
+        check(sdpa_err <= SDPA_GATE, f"scaled_dot_product_attention at batch 8 agrees with the kernel <= {SDPA_GATE}")
+        library_ms = time_ms(run_library)
+        res.update(b8_ms=ms, b8_bound_ms=8 * b1_ms, b8_bound_by=by, b8_prob_ms=prob_ms,
+                   b8_prob_bound_ms=8 * b1_prob, b8_prob_bound_by=by_prob, b8_prob_library_ms=library_ms)
+        log(f"affinity B=8 480p: kernel {ms:.4f} ms ({ms / 8:.4f} per lane), bound {8 * b1_ms:.4f} ms ({by}); "
+            f"probability mode {prob_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
+            f"(max_abs vs kernel {sdpa_err:.3e}), bound {8 * b1_prob:.4f} ms; kernel / library "
+            f"{prob_ms / library_ms:.3f}")
+        del feats, labels, tgt, keys, values
+    res["max_abs_err"] = worst
+
+    def library_block(x, k1, b1, k2, b2, k3, b3):
+        y = torch.relu(F.conv2d(x, k1, b1))
+        y = torch.relu(F.conv2d(y, k2, b2, padding=1))
+        return torch.relu(F.conv2d(y, k3, b3) + x)
+
+    n, h, w = 64, 60, 107
+    batch = {"ms": 0.0, "library_ms": 0.0}
+    for cc, c4, blocks in ((512, 128, 3), (1024, 256, 8)):
+        x = torch.as_tensor(rng.standard_normal((n, h, w, cc)), dtype=torch.float32).to(dev, torch.bfloat16)
+        shapes = [(cc, c4), (c4,), (3, 3, c4, c4), (c4,), (c4, cc), (cc,)]
+        scales = [math.sqrt(2 / cc), 0.1, math.sqrt(2 / (9 * c4)), 0.1, math.sqrt(2 / c4), 0.1]
+        wts = [torch.as_tensor(rng.standard_normal(sh) * sc, dtype=torch.float32).to(
+            dev, torch.bfloat16 if i % 2 == 0 else torch.float32).contiguous()
+            for i, (sh, sc) in enumerate(zip(shapes, scales))]
+        got = bottleneck_block(x, *wts).float()
+        expect = bottleneck_block_plain(x.float(), *[t.float() for t in wts])
+        cos = F.cosine_similarity(got.flatten(), expect.flatten(), dim=0).item()
+        rel = ((got - expect).abs().max() / expect.abs().max()).item()
+        del got, expect
+        log(f"bottleneck N={n} C={cc} C4={c4}: cos={cos:.7f} max_abs/max_ref={rel:.3e}")
+        check(cos >= 0.9999 and rel <= 2e-2, f"bottleneck N={n} C={cc}: cos >= 0.9999, rel <= 2e-2")
+        xl = x.permute(0, 3, 1, 2)
+        lib = [wts[0].t()[:, :, None, None].contiguous(memory_format=torch.channels_last), wts[1].bfloat16(),
+               wts[2].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last), wts[3].bfloat16(),
+               wts[4].t()[:, :, None, None].contiguous(memory_format=torch.channels_last), wts[5].bfloat16()]
+        batch["ms"] += blocks * time_ms(lambda: bottleneck_block(x, *wts), reps=10)
+        batch["library_ms"] += blocks * time_ms(lambda: library_block(xl, *lib), reps=10)
+        del x, xl
+    log(f"bottleneck per N=64 encode call (11 launches): kernel {batch['ms']:.4f} ms, library {batch['library_ms']:.4f} "
+        f"ms; kernel / library {batch['ms'] / batch['library_ms']:.3f}")
+    res.update(bottleneck_n64_ms=batch["ms"], bottleneck_n64_library_ms=batch["library_ms"])
+    return res
+
+
+def lockstep_memory(torch, dev, net, work: Path):
+    """10d: peak device memory of one chunk (start_videos + one 8-step
+    chunk) at 480p (B = 1, 8) and 1080p (B = 1, 2), the bytes per lane, and
+    one chunk at ``_hbm_lanes_cap`` lanes at each resolution, which must
+    stay under 85 % of the card's memory (the anchors of
+    ``infer/batched.py`` aim it at 70 %)."""
+    from semi_supervised_vos_tpu_torch.infer.batched import BatchedPropagationEngine, _hbm_lanes_cap
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig
+    from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
+
+    frames480, label480 = load_video(work, "lockstep", "v0", chunk_len() + 1)
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def clip(hw):
+        if hw == (H480, W480):
+            return frames480, label480
+        ri = (np.arange(hw[0]) * H480) // hw[0]
+        ci = (np.arange(hw[1]) * W480) // hw[1]
+        return frames480[:, ri][:, :, ci], label480[ri][:, ci]
+
+    def peak(hw, b):
+        frames, label = clip(hw)
+        engine = BatchedPropagationEngine(net, hw, b, EngineConfig(), dev)
+        lanes = np.broadcast_to(frames[:, None], (frames.shape[0], b) + frames.shape[1:])
+        labels = np.broadcast_to(label[None], (b,) + label.shape)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        state = engine.start_videos(np.ascontiguousarray(lanes[0]), np.ascontiguousarray(labels))
+        masks, state = engine.step_chunk_small(lanes[1:], state, 1)
+        torch.cuda.synchronize()
+        used = torch.cuda.max_memory_allocated() - before
+        top = torch.cuda.max_memory_allocated()
+        check(bool((masks.max() > 0).item()), f"{hw} B={b}: the chunk's masks carry an object")
+        del engine, state, masks
+        torch.cuda.empty_cache()
+        return used, top
+
+    res = {}
+    for name, hw, bs in (("480p", (H480, W480), (1, 8)), ("1080p", (1080, 1920), (1, 2))):
+        used = {b: peak(hw, b)[0] for b in bs}
+        per_lane = (used[bs[1]] - used[bs[0]]) / (bs[1] - bs[0])
+        lanes = _hbm_lanes_cap(hw)
+        cap_used, cap_top = peak(hw, lanes)
+        share = cap_top / total
+        # at the cap an encode call takes one step of every lane, so the
+        # chunk's bytes per lane there are what sets the anchors
+        log(f"lockstep memory {name}: one chunk B={bs[0]} {used[bs[0]] / 1e9:.4f} GB, B={bs[1]} "
+            f"{used[bs[1]] / 1e9:.4f} GB, {per_lane / 1e9:.4f} GB per added lane; at the lane cap ({lanes} lanes, one "
+            f"step of each per encode call) {cap_used / 1e9:.4f} GB = {cap_used / lanes / 1e9:.4f} GB per lane, peak "
+            f"{cap_top / 1e9:.4f} GB = {share:.4f} of {total / 1e9:.3f} GB")
+        check(share < 0.85, f"{name}: one chunk at {lanes} lanes peaks under 85% of the card's memory")
+        res[name] = dict(bytes_b1=used[bs[0]], bytes_b2_or_b8=used[bs[1]], bytes_per_lane=per_lane,
+                         cap_lanes=lanes, cap_bytes=cap_used, cap_bytes_per_lane=cap_used / lanes, cap_peak=cap_top,
+                         cap_share=share)
+    res["total_bytes"] = total
+    return res
+
+
 def main() -> int:
     if not (ROOT / "semi_supervised_vos_tpu_torch" / "__init__.py").is_file():
         log("FAILED: the semi_supervised_vos_tpu_torch package is not beside this script")
@@ -975,29 +1300,51 @@ def main() -> int:
         prop_launches = propagate_path(torch, dev, net, work, "clip", STRATEGY_FRAMES)
         strategies = strategies_phase(torch, dev, work, net, calibrated_vosnet(torch, dev, 1, frames), STRATEGY_FRAMES)
         strategies_cpu_parity(torch, work)
+        lockstep_videos = {f"v{i}": 17 if i % 2 == 0 else 12 for i in range(8)}
+        make_davis_tree(work / "lockstep", lockstep_videos, (H480, W480), seed=3)
+        lockstep = {"cli": lockstep_cli(torch, work, lockstep_videos)}
+        make_davis_tree(work / "lockstep2", {"v0": 17, "v1": 12}, (H480, W480), seed=4)
+        lockstep["strategies"] = lockstep_strategies(torch, work, {"v0": 17, "v1": 12})
+        lockstep["engine_ms_per_lane_frame"] = lockstep_engine_timing(torch, dev, net, work, lockstep_videos)
+        lockstep["single_engine_ms_per_frame"] = engine_ms
+        lockstep["kernels"] = lockstep_kernels(torch, dev, rng)
+        lockstep["memory"] = lockstep_memory(torch, dev, net, work)
     log(f"main path on {card}: {fps:.3f} fps end to end (CLI, decode and PNG writes included), "
         f"{engine_ms:.4f} ms/frame on the device (decoded frames), J&F {jf:.6f}")
     for name, r in strategies.items():
         log(f"strategy {name} on {card}: {r['fps']:.3f} fps end to end over {STRATEGY_FRAMES} frames, J&F {r['jf']:.6f}")
+    lc = lockstep["cli"]
+    log(f"lockstep on {card}: --video-batch 8 {lc['fps_vb8']:.3f} fps against --video-batch 1 {lc['fps_vb1']:.3f} fps "
+        f"over {lc['frames']} frames; engine ms per lane-frame "
+        + ", ".join(f"B={b} {ms:.4f}" for b, ms in lockstep["engine_ms_per_lane_frame"].items())
+        + f" (single engine {engine_ms:.4f} ms/frame)")
 
     # launches: the main path's (kernel 3: its own path's); launches_by_path:
     # each strategy's run; prob_*: probability mode at 480p, where
     # scaled_dot_product_attention computes the same function
     by_path = {k: {name: r["launches"][k] for name, r in strategies.items()} for k in ("affinity_bank", "bottleneck")}
+    for k in by_path:
+        by_path[k]["lockstep single --video-batch 8"] = lc["launches_vb8"][k]
+        for name, r in lockstep["strategies"].items():
+            by_path[k][f"lockstep {name} --video-batch 2"] = r["launches"][k]
+    lk = lockstep["kernels"]
     prob_keys = dict(prob_bound_ms=prob["bound_ms"], prob_bound_by=prob["bound_by"], prob_library_ms=prob["library_ms"])
     kernels = [
         dict(name="affinity_bank", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/affinity_bank.cu",
              replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:355", launches=launches["affinity_bank"], **aff,
-             prob_ms=prob["bank_ms"], **prob_keys, launches_by_path=by_path["affinity_bank"]),
+             prob_ms=prob["bank_ms"], **prob_keys, launches_by_path=by_path["affinity_bank"],
+             **{key: lk[key] for key in lk if key.startswith("b8_")}),
         dict(name="bottleneck", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/bottleneck.cu",
              replaces="semi_supervised_vos_tpu/ops/bottleneck_pallas.py:121", launches=launches["bottleneck"], **bott,
-             launches_by_path=by_path["bottleneck"]),
+             launches_by_path=by_path["bottleneck"], n64_ms=lk["bottleneck_n64_ms"],
+             n64_library_ms=lk["bottleneck_n64_library_ms"]),
         dict(name="affinity_propagate", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/affinity_bank.cu",
              replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:612", launches=prop_launches, **prop,
              prob_ms=prob["fused_ms"], **prob_keys),
     ]
     print(json.dumps({"strategies": {name: dict(fps=r["fps"], seconds=r["seconds"], jf=r["jf"])
                                      for name, r in strategies.items()}}))
+    print(json.dumps({"lockstep": lockstep}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,11 @@
 ``src/inference.py:18-48``), on the PyTorch engine.
 
 ``--device`` takes ``cuda`` (the default) or ``cpu``; ``cuda`` without a
-card raises. All seven strategies run, in label and probability mode.
-Options this port does not have yet raise a clear error: ``--video-batch``
-> 1, ``--bank-shards`` / ``--dp-shards`` > 1, and the ``facebook`` model.
+card raises. All seven strategies run, in label and probability mode, one
+video at a time or, with ``--video-batch`` > 1, that many videos in
+lockstep (``infer/batched.py``). Options this port does not have yet raise
+a clear error: ``--bank-shards`` / ``--dp-shards`` > 1 and the ``facebook``
+model.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ STRATEGIES = ["single", "hor-flip", "vert-flip", "2-scale", "multimodel", "hor-2
               help="Scale for 2nd image in 2-scale strategy.")
 @click.option("--fusion", default="mean", type=click.Choice(["maximum", "minimum", "mean"]),
               help="Fusion operation for probability propagation.")
-@click.option("--video-batch", type=int, default=1, help="Lockstep videos (only 1 is ported).")
+@click.option("--video-batch", type=int, default=1,
+              help="Videos propagated in lockstep per group (1: one video at a time).")
 @click.option("--bank-shards", type=int, default=1, help="Bank shards (only 1 is ported).")
 @click.option("--dp-shards", type=int, default=1, help="Data-parallel shards (only 1 is ported).")
 def inference_command(ref_num, data, resume, model, temperature, frame_range, sigma_1, sigma_2, save, device,
@@ -65,12 +68,10 @@ def inference_command(ref_num, data, resume, model, temperature, frame_range, si
         raise click.ClickException(str(err)) from err
 
 
-def check_supported(model, inference_strategy, additional_resume, additional_model_type, video_batch,
-                    bank_shards, dp_shards) -> None:
+def check_supported(model, inference_strategy, additional_resume, additional_model_type, bank_shards,
+                    dp_shards) -> None:
     """Raise NotImplementedError for an option this port does not run yet, and
     a usage error for multimodel without its second checkpoint."""
-    if video_batch != 1:
-        raise NotImplementedError("--video-batch > 1 (the lockstep engine) is not ported")
     if bank_shards != 1 or dp_shards != 1:
         raise NotImplementedError("--bank-shards / --dp-shards > 1 (multi-device) are not ported")
     multimodel = inference_strategy == "multimodel"
@@ -85,8 +86,7 @@ def inference_command_impl(ref_num, data, resume, model, temperature, frame_rang
                            additional_model_type="resnet50", probability_propagation=False, scale=1.15,
                            reduction="mean", video_batch=1, bank_shards=1, dp_shards=1, disable=False):
     """Reference ``src/inference.py:54-113``."""
-    check_supported(model, inference_strategy, additional_resume, additional_model_type, video_batch,
-                    bank_shards, dp_shards)
+    check_supported(model, inference_strategy, additional_resume, additional_model_type, bank_shards, dp_shards)
     from semi_supervised_vos_tpu_torch.data.davis import InferenceDataset
     from semi_supervised_vos_tpu_torch.infer import strategies
     from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig
@@ -110,7 +110,20 @@ def inference_command_impl(ref_num, data, resume, model, temperature, frame_rang
         except ImportError:
             pass
     args = (dataset, Path(data) / "Annotations/480p", save, net)
-    if inference_strategy == "single":
+    lockstep = video_batch > 1
+    if lockstep:
+        from semi_supervised_vos_tpu_torch.infer import batched
+    if lockstep and inference_strategy == "multimodel":
+        additional = load_torch_checkpoint(additional_resume, VOSNet(additional_model_type))
+        batched.inference_multimodel_batched(*args, additional, cfg, dev, video_batch, reduction, progress)
+    elif lockstep and inference_strategy == "3-scale":
+        batched.inference_3_scale_batched(*args, cfg, dev, video_batch, scale, progress)
+    elif lockstep and inference_strategy in ("2-scale", "hor-2-scale"):
+        batched.inference_2_scale_batched(*args, cfg, dev, video_batch, inference_strategy == "hor-2-scale",
+                                          reduction, progress)
+    elif lockstep and inference_strategy in batched.BATCHABLE_STRATEGIES:
+        batched.inference_batched(*args, cfg, dev, video_batch, inference_strategy, reduction, progress)
+    elif inference_strategy == "single":
         strategies.inference_single(*args, cfg, dev, progress)
     elif inference_strategy == "hor-flip":
         strategies.inference_hor_flip(*args, cfg, dev, reduction, progress)

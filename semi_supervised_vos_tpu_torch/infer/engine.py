@@ -46,6 +46,23 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
+def grouped_map(fn, x, cap: int) -> torch.Tensor:
+    """``fn`` over leading-axis groups of at most ``cap`` rows of ``x``,
+    concatenated (a remainder group last): keeps an encode batch at its
+    memory cap whatever the chunk length."""
+    n = x.shape[0]
+    g = max(1, min(cap, n))
+    if g >= n:
+        return fn(x)
+    out = None
+    for i in range(0, n, g):
+        y = fn(x[i : i + g])
+        if out is None:
+            out = y.new_empty((n,) + tuple(y.shape[1:]))
+        out[i : i + y.shape[0]] = y
+    return out
+
+
 class BankState(NamedTuple):
     """Ring memory bank: features (cap, P, C) and labels (cap, P, D)."""
 
@@ -152,12 +169,13 @@ class PropagationEngine:
     def _step(self, target: torch.Tensor, state: BankState, frame_idx: int) -> torch.Tensor:
         """Propagate one encoded (P, C) frame and write it into its slot: the
         soft scores in probability mode, else the argmax one-hot. Returns the
-        (num_classes, P) float32 scores."""
+        (num_classes, P) float32 scores. (The lockstep engine passes (B, P, C)
+        lanes and gets (B, num_classes, P).)"""
         pred = self._propagate(target, state, frame_idx)
         if self.cfg.probability_propagation:
-            labels = torch.nn.functional.pad(pred.T, (0, self.d_pad - pred.shape[0]))
+            labels = torch.nn.functional.pad(pred.transpose(-1, -2), (0, self.d_pad - pred.shape[-2]))
         else:
-            labels = index_to_onehot(torch.argmax(pred, dim=0), self.d_pad, self.label_dtype)
+            labels = index_to_onehot(torch.argmax(pred, dim=-2), self.d_pad, self.label_dtype)
         self._write(state, frame_idx % self.cfg.capacity, target, labels)
         return pred
 
@@ -179,16 +197,19 @@ class PropagationEngine:
         self._write(state, 0, feats, index_to_onehot(label_small, self.d_pad, self.label_dtype))
         return state
 
+    def _encode_chunk(self, frames_u8) -> torch.Tensor:
+        """A chunk's frames, encoded in one batch."""
+        return self.encode(frames_u8)
+
     @torch.no_grad()
     def step_chunk_small(self, frames_u8: np.ndarray, state: BankState, start_idx: int):
         """Frames ``start_idx .. start_idx + N - 1``: one batched encode, then
         sequential propagation with in-place bank writes. Returns
         ((N, hd, wd) uint8 feature-resolution masks on the device, state)."""
-        feats = self.encode(frames_u8)
-        n = feats.shape[0]
-        masks = torch.empty((n, self.hd, self.wd), dtype=torch.uint8, device=self.device)
-        for i in range(n):
-            masks[i] = torch.argmax(self._step(feats[i], state, start_idx + i), dim=0).view(self.hd, self.wd)
+        feats = self._encode_chunk(frames_u8)
+        masks = torch.empty(feats.shape[:-2] + (self.hd, self.wd), dtype=torch.uint8, device=self.device)
+        for i in range(feats.shape[0]):
+            masks[i] = torch.argmax(self._step(feats[i], state, start_idx + i), dim=-2).view(masks.shape[1:])
         return masks, state
 
     @torch.no_grad()
@@ -196,6 +217,6 @@ class PropagationEngine:
         """Like :meth:`step_chunk_small`, but returns the raw feature-resolution
         scores ((N, num_classes, P) float32 on the device, state): the
         multi-stream strategies fuse them across streams."""
-        feats = self.encode(frames_u8)
+        feats = self._encode_chunk(frames_u8)
         scores = [self._step(feats[i], state, start_idx + i) for i in range(feats.shape[0])]
         return torch.stack(scores), state

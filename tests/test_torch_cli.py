@@ -70,14 +70,18 @@ def test_cli_pngs_byte_identical_to_jax(davis_and_ckpt, tmp_path):
 
 
 def test_inference_path_never_imports_jax(davis_and_ckpt, tmp_path):
-    """The single path, then a two-stream strategy in probability mode."""
+    """The single path, a two-stream strategy in probability mode, and the
+    lockstep engine."""
     root, ckpt = davis_and_ckpt
     multi = ["--inference-strategy", "2-scale", "--probability", "--fusion", "maximum"]
+    lockstep = ["--inference-strategy", "hor-flip", "--video-batch", "2"]
     code = (
         "import sys\n"
         "from semi_supervised_vos_tpu_torch.__main__ import cli\n"
         f"cli({_inference_args(root, ckpt, tmp_path / 'out') + ['--device', 'cpu']!r}, standalone_mode=False)\n"
         f"cli({_inference_args(root, ckpt, tmp_path / 'multi') + ['--device', 'cpu'] + multi!r}, "
+        "standalone_mode=False)\n"
+        f"cli({_inference_args(root, ckpt, tmp_path / 'lockstep') + ['--device', 'cpu'] + lockstep!r}, "
         "standalone_mode=False)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -90,6 +94,7 @@ def test_inference_path_never_imports_jax(davis_and_ckpt, tmp_path):
     assert proc.stdout.strip().endswith("clean")
     assert len(list((tmp_path / "out").rglob("*.png"))) == 10
     assert len(list((tmp_path / "multi").rglob("*.png"))) == 10
+    assert len(list((tmp_path / "lockstep").rglob("*.png"))) == 10
 
 
 def test_package_source_never_imports_jax():
@@ -119,7 +124,7 @@ def test_missing_card_is_an_error(davis_and_ckpt, tmp_path):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--model", "facebook"], ["--dp-shards", "2"], ["--video-batch", "2"], ["--bank-shards", "2"]],
+    [["--model", "facebook"], ["--dp-shards", "2"], ["--video-batch", "2", "--dp-shards", "2"], ["--bank-shards", "2"]],
 )
 def test_unported_options_raise(davis_and_ckpt, tmp_path, flags):
     root, ckpt = davis_and_ckpt

@@ -198,3 +198,84 @@ def test_card_tensors_never_take_the_plain_version(card):
     ref = torch.zeros((2, 16, 32), device=card)
     with pytest.raises(ValueError, match="target_feat is on cpu"):
         tap.affinity_propagate_fused(ref, ref[0].cpu(), ref, feature_hw=(4, 4), temperature=1.0)
+
+
+def test_bank_kernel_eight_lanes_at_480p(card, nprng):
+    """B = 8 lanes at 480p, the bank of ``--video-batch 8``, against the
+    plain version lane by lane (the plain version holds a lane's (K, P, P)
+    scores at once)."""
+    hd, wd, c, d_pad, cap, k, b = 60, 107, 256, 24, 45, 9, 8
+    p = hd * wd
+    feats, labels = _bank(nprng, card, cap, b, p, c, d_pad)
+    tgt = torch.as_tensor(nprng.standard_normal((b, p, c)) * 0.2, dtype=torch.float32).to(card, torch.bfloat16).float()
+    idx, valid, dense = sample_frames(50, 40, k)
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense)
+    got = tap.affinity_from_bank_batched(feats, labels, tgt, idx % cap, **kw)
+    torch.cuda.synchronize()
+    for lane in range(b):
+        expect = tap.affinity_from_bank_plain(feats[:, lane : lane + 1].float(), labels[:, lane : lane + 1].float(),
+                                              tgt[lane : lane + 1], idx % cap, **kw)[0, :22]
+        torch.testing.assert_close(got[lane, :22], expect, rtol=1e-4, atol=3.4e-5)
+        assert (got[lane, :22].argmax(0) == expect.argmax(0)).double().mean().item() >= 0.999
+
+
+def _moving_squares(nprng, videos, frames, h, w):
+    """(frames, videos, h, w, 3) uint8 clips of two squares moving over a
+    textured background, and their (videos, h, w) first-frame labels."""
+    clips = np.zeros((frames, videos, h, w, 3), np.uint8)
+    labels = np.zeros((videos, h, w), np.int64)
+    for v in range(videos):
+        bg = nprng.integers(0, 90, size=(h, w, 3), dtype=np.uint8)
+        for t in range(frames):
+            img = bg.copy()
+            y, x = h // 4 + 2 * v, w // 6 + 3 * t
+            img[y : y + h // 3, x : x + w // 5] = [210, 50 + 20 * v, 40]
+            y2, x2 = 2 * h // 3, w // 2 - 2 * t
+            img[y2 : y2 + h // 6, x2 : x2 + w // 6] = [40, 90, 220]
+            clips[t, v] = img
+            if t == 0:
+                labels[v, y : y + h // 3, x : x + w // 5] = 1
+                labels[v, y2 : y2 + h // 6, x2 : x2 + w // 6] = 2
+    return clips, labels
+
+
+def test_lockstep_engine_matches_single_engines(card, nprng):
+    """The lockstep engine at B = 4 (resnet50, both kernels, one bank-kernel
+    launch per step) against four single engines on the card; the encode
+    batches differ (B x 8 frames against 8), so cuDNN may take other
+    algorithms and bf16 moves a near-tied argmax now and then."""
+    from semi_supervised_vos_tpu_torch.infer.batched import BatchedPropagationEngine
+    from semi_supervised_vos_tpu_torch.infer.engine import IMAGENET_MEAN, IMAGENET_STD, EngineConfig, PropagationEngine
+    from semi_supervised_vos_tpu_torch.models.resnet import Bottleneck, init_weights
+    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
+
+    b, n, h, w = 4, 17, 128, 224
+    clips, labels = _moving_squares(nprng, b, n, h, w)
+    # a random resnet50 whose features tell the objects apart: BN statistics
+    # estimated on the clips, residual branches scaled down (chip_smoke.py's recipe)
+    net = VOSNet("resnet50")
+    init_weights(net, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.reset_running_stats()
+                m.momentum = None
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.mul_(0.1)
+        x = torch.as_tensor(clips.reshape(-1, h, w, 3), device=card).float() / 255.0
+        x = (x - torch.as_tensor(IMAGENET_MEAN, device=card)) / torch.as_tensor(IMAGENET_STD, device=card)
+        net.to(card).train()(x.permute(0, 3, 1, 2))
+    net.eval()
+    cfg = EngineConfig()
+    engine = BatchedPropagationEngine(net, (h, w), b, cfg, card)
+    state = engine.start_videos(clips[0], labels)
+    before = tap.affinity_from_bank_batched.launches
+    lockstep = torch.cat([engine.step_chunk_small(clips[s : s + 8], state, s)[0] for s in range(1, n, 8)])
+    torch.cuda.synchronize()
+    assert tap.affinity_from_bank_batched.launches == before + n - 1
+    single = PropagationEngine(net, (h, w), cfg, card)
+    for v in range(b):
+        st = single.start_video(clips[0, v], labels[v])
+        masks = torch.cat([single.step_chunk_small(clips[s : s + 8, v], st, s)[0] for s in range(1, n, 8)])
+        assert masks.max().item() >= 1  # the comparison is not between constant masks
+        assert (lockstep[:, v] == masks).double().mean().item() >= 0.999, v
