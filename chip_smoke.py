@@ -48,19 +48,31 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
      plain version (timed at B = 8 against its bound, and beside
      ``scaled_dot_product_attention`` in probability mode), the bottleneck
      at N = 64; (d) device memory of one chunk at 480p and 1080p, and one
-     chunk at the lane cap under 85 % of the card's memory.
+     chunk at the lane cap under 85 % of the card's memory;
+ 11. training, on a 480p tree of 4 videos x 20 frames, at PyTorch's default
+     precision (cuDNN TF32 convolutions, float32 matmuls): (a) the train step
+     at full width (resnet50, bs 16 x 10 frames x 256^2) for cross-entropy,
+     focal, contrastive, triplet with the default, temporal and skeleton
+     (pipelined) miners and cross-entropy under ``--bf16``, device ms per
+     step, peak memory, losses finite, and cross-entropy falling over 20
+     steps on one batch; (b) ``train`` through the CLI (default device, 2
+     epochs, ``--early-stop``), ``validation`` on its checkpoints, then
+     ``inference`` and ``evaluation`` with the last one, clips/s and J&F;
+     no hand-written kernel launches on the training path; (c) one resnet18
+     step on the card against the CPU with TF32 off.
 
 Times are medians of 20 CUDA-event timings, printed with their p10-p90
 spread. The line before the last is the card's name and power limit as
 nvidia-smi reports them, the one before that a JSON summary of every
-kernel, and before that JSON lines for the strategies and the lockstep
-phase.
+kernel, and before that JSON lines for the strategies, the lockstep phase
+and training.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1244,6 +1256,226 @@ def lockstep_memory(torch, dev, net, work: Path):
     return res
 
 
+# ---- phase 11: training ----------------------------------------------------
+
+TRAIN_VIDEOS = {f"t{i}": 20 for i in range(4)}  # 80 clips: 5 batches of 16, validation at epoch 0
+TRAIN_BS, TRAIN_FRAMES, TRAIN_CROP = 16, 10, 256  # the train CLI's defaults: bs 16 x 10 frames x 256^2
+# (label, loss, miner, bf16): each timed from the same initial weights
+TRAIN_RUNS = [
+    ("cross_entropy", "cross_entropy", None, False),
+    ("focal", "focal", None, False),
+    ("contrastive", "contrastive", None, False),
+    ("triplet default", "triplet", "default", False),
+    ("triplet temporal", "triplet", "temporal", False),
+    ("triplet skeleton", "triplet", "skeleton", False),
+    ("cross_entropy --bf16", "cross_entropy", None, True),
+]
+TRAIN_STEP_REPS = 10
+TRAIN_FALL_STEPS = 20
+CARD_VS_CPU_LOSS_RTOL = 1e-4
+CARD_VS_CPU_MIN_COS = 0.99999
+
+
+def kernel_launches():
+    from semi_supervised_vos_tpu_torch.ops import affinity as aff
+    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block
+
+    return {"affinity_bank": aff.affinity_from_bank_batched.launches,
+            "affinity_propagate": aff.affinity_propagate_fused.launches, "bottleneck": bottleneck_block.launches}
+
+
+def reset_kernel_launches():
+    from semi_supervised_vos_tpu_torch.ops import affinity as aff
+    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block
+
+    aff.affinity_from_bank_batched.launches = aff.affinity_propagate_fused.launches = 0
+    bottleneck_block.launches = 0
+
+
+def conv_flops(torch, net, x) -> float:
+    """Multiply-adds x 2 of every convolution in one forward of ``x``."""
+    total = []
+
+    def hook(m, inp, out):
+        total.append(2.0 * out.numel() * m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1])
+
+    handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        net.eval()(x)
+    for h in handles:
+        h.remove()
+    return sum(total)
+
+
+def training_steps(torch, dev, work: Path):
+    """11a: the port's train step at full width (resnet50, bs 16 x 10 frames
+    x 256^2 crops of a 480p tree) for each loss, from the same initial
+    weights; device ms per step (CUDA events), peak memory, losses finite;
+    then cross-entropy for TRAIN_FALL_STEPS steps on one fixed batch."""
+    from semi_supervised_vos_tpu_torch.cli.train import build_train_net, make_spec
+    from semi_supervised_vos_tpu_torch.data.davis import TrainDataset
+    from semi_supervised_vos_tpu_torch.ops.onehot import davis_centroids
+    from semi_supervised_vos_tpu_torch.train.loop import iterate_batches, make_geometry_fn, make_train_step
+    from semi_supervised_vos_tpu_torch.train.train_state import make_optimizer
+
+    tree = work / "train"
+    ds = TrainDataset(tree / "JPEGImages" / "480p", tree / "Annotations" / "480p", cropping=TRAIN_CROP,
+                      frame_num=TRAIN_FRAMES)
+    imgs, anns = next(iterate_batches(ds, TRAIN_BS, num_workers=8))
+    imgs_d, anns_d = torch.as_tensor(imgs, device=dev), torch.as_tensor(anns, device=dev)
+    centroids = torch.as_tensor(davis_centroids(), dtype=torch.float32, device=dev)
+    net = build_train_net("resnet50", dev)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    x = (imgs_d.reshape(-1, TRAIN_CROP, TRAIN_CROP, 3).float() / 255.0).permute(0, 3, 1, 2)
+    fwd_flops = conv_flops(torch, net, x)
+    del x
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"train batch {tuple(imgs.shape)} uint8; resnet50 forward {fwd_flops / 1e12:.4f} TFLOP of convolutions a step "
+        f"({fwd_flops / imgs.shape[0] / imgs.shape[1] / 1e9:.3f} GFLOP an image)")
+
+    def fresh_step(loss, miner, bf16):
+        net.load_state_dict(start)
+        net.train()
+        spec = make_spec(loss, miner or "default", 0.1, 1.0)
+        step = make_train_step(net, spec, make_optimizer(net.parameters()), bf16=bf16)
+        geometry_fn = make_geometry_fn(spec, davis_centroids(), dev)
+        extra, geo_ms = (), None
+        if geometry_fn is not None:
+            host = []
+            for _ in range(4):  # the first call imports SciPy's morphology
+                t0 = time.perf_counter()
+                geom = geometry_fn(anns)
+                host.append((time.perf_counter() - t0) * 1e3)
+            geo_ms = statistics.median(host[1:])
+            extra = (tuple(torch.as_tensor(g, device=dev) for g in geom),)
+        generator = torch.Generator(device=dev).manual_seed(42)
+        return (lambda: step(imgs_d, anns_d, centroids, generator, *extra)), geo_ms
+
+    results = {}
+    for label, loss, miner, bf16 in TRAIN_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step, geo_ms = fresh_step(loss, miner, bf16)
+        losses = []
+        t = time_ms(lambda: losses.append(step()), reps=TRAIN_STEP_REPS, warmup=2)
+        peak = torch.cuda.max_memory_allocated()
+        vals = torch.stack(losses).cpu()
+        r = dict(**timing_keys("ms", t), steps_per_s=1e3 / float(t), clips_per_s=TRAIN_BS * 1e3 / float(t),
+                 model_tflops_per_s=3 * fwd_flops / (float(t) * 1e-3) / 1e12, peak_bytes=peak,
+                 peak_share=peak / total, loss_first=float(vals[0]), loss_last=float(vals[-1]))
+        if geo_ms is not None:
+            r["host_geometry_ms"] = geo_ms
+        log(f"train step {label}: {t:.3f} ms = {r['steps_per_s']:.3f} steps/s ({r['clips_per_s']:.2f} clips/s, "
+            f"{r['model_tflops_per_s']:.1f} TFLOP/s at 3x the forward), peak {peak / 2**30:.3f} GiB = "
+            f"{r['peak_share']:.4f} of the card, losses {r['loss_first']:.6f} .. {r['loss_last']:.6f}"
+            + (f", host geometry {geo_ms:.3f} ms a batch" if geo_ms is not None else ""))
+        check(bool(torch.isfinite(vals).all()), f"{label}: every loss finite")
+        results[label] = r
+    step, _ = fresh_step("cross_entropy", None, False)
+    fall = torch.stack([step() for _ in range(TRAIN_FALL_STEPS)]).cpu().tolist()
+    log(f"cross_entropy over {TRAIN_FALL_STEPS} steps on one batch: " + " ".join(f"{v:.5f}" for v in fall))
+    check(all(math.isfinite(v) for v in fall) and fall[-1] < 0.9 * fall[0],
+          f"cross-entropy falls by more than 10 % over {TRAIN_FALL_STEPS} steps")
+    del net, step
+    torch.cuda.empty_cache()
+    return results, dict(fwd_tflop=fwd_flops / 1e12, fall=fall)
+
+
+def training_cli(torch, work: Path):
+    """11b: ``train`` through the CLI (default device, resnet50, 2 epochs,
+    --early-stop), ``validation`` on its checkpoints, then ``inference`` and
+    ``evaluation`` with the last one. The kernels' launch counts over
+    train and validation are the training path's."""
+    from semi_supervised_vos_tpu_torch.__main__ import cli
+    from semi_supervised_vos_tpu_torch.eval.evaluation import evaluation_command_impl
+
+    tree, ckpts = work / "train", work / "train_ckpts"
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    cli(["train", "-t", str(tree), "-v", str(tree), "-m", str(ckpts), "--epochs", "2", "--early-stop"],
+        standalone_mode=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    clips = 2 * (sum(n for n in TRAIN_VIDEOS.values()) // TRAIN_BS) * TRAIN_BS
+    names = sorted(p.name for p in ckpts.iterdir())
+    log(f"train CLI: {clips} clips in 2 epochs (validation of 80 clips at epoch 0) in {wall:.3f} s = "
+        f"{clips / wall:.3f} clips/s end to end; checkpoints {names}")
+    epochs = [n for n in names if n.startswith("checkpoint-epoch-")]
+    check(len(epochs) == 2 and "model.pth.tar" in names, "two epoch checkpoints and the early-stopping best")
+    train_losses = [float(n.split("-")[3]) for n in epochs]
+    val_in_name = float(epochs[0].split("-")[4][: -len(".pth.tar")])
+    check(all(math.isfinite(v) for v in train_losses + [val_in_name]), "losses in the names finite")
+    out = work / "validation.json"
+    t0 = time.perf_counter()
+    cli(["validation", "-d", str(tree), "-c", str(ckpts), "-o", str(out)], standalone_mode=False)
+    val_wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    val = json.loads(out.read_text())
+    log(f"validation CLI: {val} in {val_wall:.3f} s; kernel launches over train and validation {launches}")
+    check(sorted(val) == names and all(math.isfinite(v) for v in val.values()), "validation: a finite loss a checkpoint")
+    check(abs(val[epochs[0]] - val_in_name) <= 1e-3 * abs(val_in_name),
+          "validation CLI on epoch 0's checkpoint reproduces the train CLI's epoch-0 validation loss to 1e-3")
+    check(launches == {"affinity_bank": 0, "affinity_propagate": 0, "bottleneck": 0},
+          "no hand-written kernel runs on the training path")
+    pred = work / "train_pred"
+    t0 = time.perf_counter()
+    cli(["inference", "-d", str(tree), "-r", str(ckpts / epochs[-1]), "-s", str(pred)], standalone_mode=False)
+    torch.cuda.synchronize()
+    infer_wall = time.perf_counter() - t0
+    j, f, jf = evaluation_command_impl(tree / "Annotations" / "480p", pred, processes=1)
+    log(f"inference with {epochs[-1]}: {sum(TRAIN_VIDEOS.values())} frames in {infer_wall:.3f} s; "
+        f"J={j:.6f} F={f:.6f} J&F={jf:.6f}")
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in (j, f, jf)), "J&F after train -> inference finite in [0, 1]")
+    return dict(clips_per_s=clips / wall, seconds=wall, clips=clips, train_losses=train_losses,
+                val_loss_epoch0=val_in_name, validation=val, validation_seconds=val_wall, jf=jf, j=j, f=f,
+                launches=launches)
+
+
+def training_card_vs_cpu(torch, dev):
+    """11c: one cross-entropy step at resnet18, 64^2 crops, bs 2 x 3 frames,
+    on the card and on the CPU from the same weights, TF32 off."""
+    from semi_supervised_vos_tpu_torch.cli.train import build_train_net, make_spec
+    from semi_supervised_vos_tpu_torch.ops.onehot import davis_centroids
+    from semi_supervised_vos_tpu_torch.train.loop import make_train_step
+    from semi_supervised_vos_tpu_torch.train.train_state import make_optimizer
+
+    rng = np.random.default_rng(11)
+    imgs = rng.integers(0, 255, (2, 3, 64, 64, 3)).astype(np.uint8)
+    anns = np.zeros((2, 3, 64, 64, 3), np.uint8)
+    anns[:, :, 8:40, 12:44] = [128, 0, 0]
+    anns[:, :, 36:60, 32:60] = [0, 128, 0]
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        net = build_train_net("resnet18", device).train()
+        step = make_train_step(net, make_spec("cross_entropy", "default", 0.1, 1.0), make_optimizer(net.parameters()))
+        loss = step(torch.as_tensor(imgs, device=device), torch.as_tensor(anns, device=device),
+                    torch.as_tensor(davis_centroids(), dtype=torch.float32, device=device), None)
+        out[device.type] = (loss.item(), torch.cat([p.detach().flatten().cpu().double() for p in net.parameters()]))
+    (l_cpu, p_cpu), (l_card, p_card) = out["cpu"], out["cuda"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    cos = torch.nn.functional.cosine_similarity(p_card, p_cpu, dim=0).item()
+    log(f"card vs CPU, one resnet18 step at 64^2, bs 2 x 3, TF32 off: loss {l_card:.7f} vs {l_cpu:.7f} "
+        f"(relative {rel:.2e}), parameters' cosine {cos:.8f}")
+    check(rel <= CARD_VS_CPU_LOSS_RTOL, f"card loss within {CARD_VS_CPU_LOSS_RTOL} of the CPU's")
+    check(cos >= CARD_VS_CPU_MIN_COS, f"parameters' cosine >= {CARD_VS_CPU_MIN_COS}")
+    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel, param_cosine=cos)
+
+
+def training_phase(torch, dev, work: Path):
+    """Phase 11 at PyTorch's default precision (cuDNN convolutions in TF32,
+    float32 matmuls), then the card-vs-CPU step in full float32."""
+    make_davis_tree(work / "train", TRAIN_VIDEOS, (H480, W480), seed=5)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        steps, extra = training_steps(torch, dev, work)
+        cli_res = training_cli(torch, work)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    parity = training_card_vs_cpu(torch, dev)
+    return dict(precision="cuDNN convolutions TF32 (PyTorch default), matmuls float32", steps=steps, **extra,
+                cli=cli_res, card_vs_cpu=parity)
+
+
 def main() -> int:
     if not (ROOT / "semi_supervised_vos_tpu_torch" / "__init__.py").is_file():
         log("FAILED: the semi_supervised_vos_tpu_torch package is not beside this script")
@@ -1254,6 +1486,7 @@ def main() -> int:
         log("FAILED: no CUDA device")
         return 1
     sys.path.insert(0, str(ROOT))
+    os.environ["SVOS_ZOO"] = "0"  # the train CLI's ImageNet lookup: random init, no download
     from semi_supervised_vos_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
@@ -1309,6 +1542,7 @@ def main() -> int:
         lockstep["single_engine_ms_per_frame"] = engine_ms
         lockstep["kernels"] = lockstep_kernels(torch, dev, rng)
         lockstep["memory"] = lockstep_memory(torch, dev, net, work)
+        training = training_phase(torch, dev, work)
     log(f"main path on {card}: {fps:.3f} fps end to end (CLI, decode and PNG writes included), "
         f"{engine_ms:.4f} ms/frame on the device (decoded frames), J&F {jf:.6f}")
     for name, r in strategies.items():
@@ -1318,6 +1552,10 @@ def main() -> int:
         f"over {lc['frames']} frames; engine ms per lane-frame "
         + ", ".join(f"B={b} {ms:.4f}" for b, ms in lockstep["engine_ms_per_lane_frame"].items())
         + f" (single engine {engine_ms:.4f} ms/frame)")
+    log(f"training on {card}: " + ", ".join(f"{k} {r['ms']:.3f} ms/step ({r['steps_per_s']:.3f} steps/s)"
+                                            for k, r in training["steps"].items())
+        + f"; train CLI {training['cli']['clips_per_s']:.3f} clips/s end to end, J&F after inference "
+        f"{training['cli']['jf']:.6f}")
 
     # launches: the main path's (kernel 3: its own path's); launches_by_path:
     # each strategy's run; prob_*: probability mode at 480p, where
@@ -1333,18 +1571,22 @@ def main() -> int:
         dict(name="affinity_bank", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/affinity_bank.cu",
              replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:355", launches=launches["affinity_bank"], **aff,
              prob_ms=prob["bank_ms"], **prob_keys, launches_by_path=by_path["affinity_bank"],
-             **{key: lk[key] for key in lk if key.startswith("b8_")}),
+             **{key: lk[key] for key in lk if key.startswith("b8_")},
+             launches_training=training["cli"]["launches"]["affinity_bank"]),
         dict(name="bottleneck", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/bottleneck.cu",
              replaces="semi_supervised_vos_tpu/ops/bottleneck_pallas.py:121", launches=launches["bottleneck"], **bott,
              launches_by_path=by_path["bottleneck"], n64_ms=lk["bottleneck_n64_ms"],
-             n64_library_ms=lk["bottleneck_n64_library_ms"]),
+             n64_library_ms=lk["bottleneck_n64_library_ms"],
+             launches_training=training["cli"]["launches"]["bottleneck"]),
         dict(name="affinity_propagate", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/affinity_bank.cu",
              replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:612", launches=prop_launches, **prop,
-             prob_ms=prob["fused_ms"], **prob_keys),
+             prob_ms=prob["fused_ms"], **prob_keys,
+             launches_training=training["cli"]["launches"]["affinity_propagate"]),
     ]
     print(json.dumps({"strategies": {name: dict(fps=r["fps"], seconds=r["seconds"], jf=r["jf"])
                                      for name, r in strategies.items()}}))
     print(json.dumps({"lockstep": lockstep}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,5 +8,5 @@ PyTorch version beside its wrapper (``ops/affinity.py``,
 ``ops/bottleneck.py``).
 
 The package imports ``torch`` and never ``jax``. Entry point:
-``python -m semi_supervised_vos_tpu_torch {inference,evaluation}``.
+``python -m semi_supervised_vos_tpu_torch {train,validation,inference,evaluation}``.
 """

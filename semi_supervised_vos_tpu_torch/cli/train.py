@@ -1,0 +1,208 @@
+"""`train` command: the JAX package's CLI surface (reference
+``src/train.py:25-49``) on the PyTorch train loop.
+
+``--device`` takes ``cuda`` (the default) or ``cpu``; ``cuda`` without a
+card raises. Not ported yet, and refused: ``--tp`` > 1 and ``--model
+facebook``. On a host with several cards the port trains on the first
+(the JAX package's data-parallel mesh is not ported). Checkpoints are
+reference-format ``.pth.tar`` files (``train/train_state.py``).
+"""
+
+from __future__ import annotations
+
+import math
+from pathlib import Path
+
+import click
+
+from semi_supervised_vos_tpu_torch.utils.logging import logger
+
+MINER_CHOICES = [
+    "default", "kernel_7x7", "temporal", "one_back_one_ahead",
+    "euclidean", "manhattan", "chebyshev", "skeleton",
+    "skeleton_nearest_negative", "skeleton_temporal",
+]
+LOSS_CHOICES = ["cross_entropy", "focal", "contrastive", "triplet"]
+
+
+@click.command(name="train")
+@click.option("--frame_num", "-n", type=int, default=10, help="Number of frames to train.")
+@click.option("--train", "-t", "training", type=click.Path(file_okay=False, dir_okay=True), required=True,
+              help="Path to training dataset.")
+@click.option("--val", "-v", "validation", type=click.Path(file_okay=False, dir_okay=True), required=True,
+              help="Path to validation dataset.")
+@click.option("--resume", "-r", type=click.Path(dir_okay=True, file_okay=True), help="Path to the trained checkpoint.")
+@click.option("--save_model", "-m", type=click.Path(dir_okay=True, file_okay=False), default="./checkpoints",
+              help="Directory to save checkpoints.")
+@click.option("--epochs", type=int, default=240, help="Number of epochs.")
+@click.option("--bs", type=int, default=16, help="Batch size.")
+@click.option("--lr", type=float, default=0.02, help="Initial learning rate.")
+@click.option("--loss", type=click.Choice(LOSS_CHOICES), default="cross_entropy", help="Loss function to use.")
+@click.option("--freeze/--no-freeze", default=False, help="Whether or not freeze the feature extractor backbone.")
+@click.option("--miner", type=click.Choice(MINER_CHOICES), default="default", help="Triplet loss miner.")
+@click.option("--margin", type=click.FloatRange(min=0.0, max=1.0), default=0.1, help="Triplet loss margin.")
+@click.option("--loss_weight", type=click.FloatRange(min=0.0), default=1.0, help="Weight of triplet loss.")
+@click.option("--max_triplets", type=click.IntRange(min=0), default=0,
+              help="Maximum number of triplets to mine (0 means take all triplets).")
+@click.option("--early-stop/--no-early-stop", default=False, help="Whether or not use the early stopping for training.")
+@click.option("--model", "model_name", type=click.Choice(["resnet18", "resnet50", "resnet101", "facebook"]),
+              default="resnet50", help="Backbone.")
+@click.option("--pretrained", type=click.Path(file_okay=True, dir_okay=False), default=None,
+              help="Local torchvision ImageNet checkpoint for the backbone (layer4 and fc dropped).")
+@click.option("--device", type=click.Choice(["cuda", "cpu"]), default="cuda", help="Device to run computing on.")
+@click.option("--bf16/--no-bf16", default=False,
+              help="bfloat16 autocast over the forward (float32 parameters and gradients).")
+@click.option("--tp", type=click.IntRange(min=1), default=1, help="Tensor-parallel degree (only 1 is ported).")
+@click.option("--decode-cache/--no-decode-cache", default=None,
+              help="Keep decoded frames in host RAM after the first epoch. Default: the SVOS_DECODE_CACHE env var.")
+def train_command(frame_num, training, validation, resume, save_model, epochs, bs, lr, loss, freeze, miner, margin,
+                  loss_weight, max_triplets, early_stop, model_name, pretrained, device, bf16, tp, decode_cache):
+    try:
+        train_command_impl(frame_num, training, validation, resume, save_model, epochs, bs, lr, loss, freeze, miner,
+                           margin, loss_weight, max_triplets, early_stop, model_name, pretrained, device, bf16=bf16,
+                           tp=tp, decode_cache=decode_cache)
+    except (NotImplementedError, RuntimeError, ValueError) as err:
+        raise click.ClickException(str(err)) from err
+
+
+def check_supported(model_name: str, tp: int) -> None:
+    if tp != 1:
+        raise NotImplementedError("--tp > 1 (tensor parallelism over several devices) is not ported")
+    if model_name == "facebook":
+        raise NotImplementedError("--model facebook is not ported")
+
+
+def make_spec(loss: str, miner: str, margin: float, loss_weight: float, max_triplets: int = 0):
+    from semi_supervised_vos_tpu_torch.train.loop import LossSpec
+    from semi_supervised_vos_tpu_torch.train.miners import get_miner
+
+    miner_obj = None
+    if loss == "triplet":
+        miner_obj = get_miner(miner)
+        if miner_obj is None:
+            raise RuntimeError("Invalid miner type.")
+        miner_obj.max_triplets = max_triplets
+    return LossSpec(name=loss, temperature=1.0, margin=margin, loss_weight=loss_weight, miner=miner_obj)
+
+
+def build_train_net(model_name: str, dev, pretrained=None):
+    """VOSNet initialised as the JAX train CLI does (``init_train_weights``
+    from seed 42), then the ImageNet backbone from ``pretrained`` if given,
+    on ``dev`` (channels-last on the card, for cuDNN's NHWC kernels)."""
+    import torch
+
+    from semi_supervised_vos_tpu_torch.models.resnet import init_train_weights
+    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
+
+    net = VOSNet(model_name)
+    init_train_weights(net, torch.Generator().manual_seed(42))
+    if pretrained is not None:
+        from semi_supervised_vos_tpu_torch.models.convert import load_torchvision_backbone
+
+        load_torchvision_backbone(net, torch.load(pretrained, map_location="cpu", weights_only=True))
+    net = net.to(dev)
+    if dev.type == "cuda":
+        net = net.to(memory_format=torch.channels_last)
+    return net
+
+
+def train_command_impl(frame_num, training, validation, resume, save_model, epochs, bs, lr, loss, freeze, miner,
+                       margin, loss_weight, max_triplets, early_stop, model_name="resnet50", pretrained=None,
+                       device="cuda", disable=False, crop=256, bf16=False, tp=1, decode_cache=None):
+    """Reference ``src/train.py:49-152``; returns the trained network."""
+    check_supported(model_name, tp)
+    import torch
+
+    from semi_supervised_vos_tpu_torch.config import default_num_workers
+    from semi_supervised_vos_tpu_torch.data.davis import TrainDataset
+    from semi_supervised_vos_tpu_torch.ops.onehot import davis_centroids
+    from semi_supervised_vos_tpu_torch.train.early_stopping import EarlyStopping
+    from semi_supervised_vos_tpu_torch.train.loop import (
+        iterate_batches,
+        make_eval_step,
+        make_geometry_fn,
+        make_train_step,
+        run_epoch,
+    )
+    from semi_supervised_vos_tpu_torch.train.train_state import (
+        checkpoint_name,
+        cosine_lr,
+        load_weights,
+        make_optimizer,
+        save_checkpoint,
+        set_learning_rate,
+    )
+    from semi_supervised_vos_tpu_torch.utils.runtime import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        logger.warning(f"{torch.cuda.device_count()} cards present; training on cuda:0 only "
+                       "(multi-device data parallelism is not ported)")
+    logger.info("Training started.")
+    spec = make_spec(loss, miner, margin, loss_weight, max_triplets)
+
+    if pretrained is None and resume is None:
+        # the reference's out-of-box ImageNet initialisation, random offline
+        from semi_supervised_vos_tpu_torch.models.zoo import auto_pretrained_path
+
+        pretrained = auto_pretrained_path(model_name)
+    net = build_train_net(model_name, dev, pretrained)
+    optimizer = make_optimizer(net.parameters(), base_lr=lr)
+    start_epoch = load_weights(resume, net, optimizer) if resume is not None else 0
+    if freeze:
+        trainable = net.frozen_backbone_mask()
+        for name, param in net.named_parameters():
+            param.requires_grad_(trainable[name])
+
+    train_dataset = TrainDataset(Path(training) / "JPEGImages/480p", Path(training) / "Annotations/480p",
+                                 cropping=crop, frame_num=frame_num, decode_cache=decode_cache)
+    validation_dataset = TrainDataset(Path(validation) / "JPEGImages/480p", Path(validation) / "Annotations/480p",
+                                      cropping=crop, frame_num=frame_num, decode_cache=decode_cache)
+    validation_bs = max(bs // 2, 1)
+    train_batches = math.ceil(len(train_dataset) / bs)
+    save_model = Path(save_model)
+    save_model.mkdir(parents=True, exist_ok=True)
+
+    num_workers = default_num_workers()
+    centroids = torch.as_tensor(davis_centroids(), dtype=torch.float32, device=dev)
+    train_step = make_train_step(net, spec, optimizer, bf16=bf16)
+    eval_step = make_eval_step(net, spec, bf16=bf16)
+    geometry_fn = make_geometry_fn(spec, davis_centroids(), dev)
+    generator = torch.Generator(device=dev).manual_seed(42)
+
+    epoch = start_epoch
+    early_stopper = EarlyStopping(save_model, log=logger.info,
+                                  save_fn=lambda target: save_checkpoint(net, optimizer, epoch + 1, target))
+    progress, bar = None, None
+    if not disable:
+        try:
+            from tqdm import tqdm
+
+            bar = tqdm(total=epochs * train_batches, desc="Training.")
+            progress = bar.update
+        except ImportError:
+            pass
+
+    for epoch in range(start_epoch, start_epoch + epochs):
+        # the reference reseeds the augmentation every epoch (train.py:132)
+        train_dataset.seed(42)
+        validation_dataset.seed(42)
+        set_learning_rate(optimizer, cosine_lr(epoch, base_lr=lr, epochs=epochs))
+        net.train()
+        train_loss = run_epoch(train_step, iterate_batches(train_dataset, bs, num_workers=num_workers), centroids,
+                               generator, dev, progress=progress, geometry_fn=geometry_fn)
+        validation_loss = float("nan")
+        if epoch % 10 == 0:
+            net.eval()
+            validation_loss = run_epoch(
+                eval_step, iterate_batches(validation_dataset, validation_bs, num_workers=num_workers), centroids,
+                generator, dev, geometry_fn=geometry_fn)
+        if early_stop and early_stopper(validation_loss, epoch):
+            logger.info("Early stopping stopped the training.")
+            break
+        save_checkpoint(net, optimizer, epoch + 1, save_model / checkpoint_name(epoch, train_loss, validation_loss))
+        logger.info(f"epoch {epoch}: train_loss={train_loss:.5f} val_loss={validation_loss:.5f}")
+    if bar:
+        bar.close()
+    logger.info("Training finished.")
+    return net

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 import multiprocessing
+import os
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,3 +28,12 @@ class Config:
 
 
 DEFAULT = Config()
+
+
+def default_num_workers() -> int:
+    """Decode threads of the training input pipeline: ``SVOS_NUM_WORKERS``,
+    else the CPU count up to 8."""
+    env = os.environ.get("SVOS_NUM_WORKERS")
+    if env:
+        return max(int(env), 1)
+    return min(DEFAULT.cpu_count, 8)

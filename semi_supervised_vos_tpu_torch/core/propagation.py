@@ -11,6 +11,10 @@
 
 The engine runs this on the CPU; on the card it runs the fused CUDA kernel
 (:mod:`semi_supervised_vos_tpu_torch.ops.affinity`).
+
+Training uses the batched forms :func:`batch_similarity` and
+:func:`batch_predict` (reference ``src/model/loss.py:13-36``), plain
+float32 products on the CPU and on the card alike.
 """
 
 from __future__ import annotations
@@ -67,3 +71,18 @@ def affinity_propagate(
         soft = soft * w
 
     return torch.einsum("kpd,kpq->dq", ref_labels.float(), soft)
+
+
+def batch_similarity(ref: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """(B, N, H, W, C) reference and (B, H, W, C) target features →
+    (B, N·H·W, H·W) float32 similarity."""
+    b, n, h, w, c = ref.shape
+    return torch.bmm(ref.reshape(b, n * h * w, c).float(), target.reshape(b, h * w, c).float().transpose(1, 2))
+
+
+def batch_predict(global_similarity: torch.Tensor, ref_label: torch.Tensor) -> torch.Tensor:
+    """(B, N·H·W, H·W) weights and (B, N, H, W, D) one-hot labels → (B, H, W, D)
+    propagated scores."""
+    b, n, h, w, d = ref_label.shape
+    out = torch.bmm(global_similarity.transpose(1, 2), ref_label.reshape(b, n * h * w, d).float())
+    return out.reshape(b, h, w, d)

@@ -3,6 +3,7 @@ loop (PIL decode releases the GIL)."""
 
 from __future__ import annotations
 
+import functools
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
@@ -11,13 +12,20 @@ from typing import Iterator
 def prefetch(iterable_factory, length: int, depth: int = 4, workers: int = 2) -> Iterator:
     """Iterate ``iterable_factory(i)`` for i in range(length), decoding up to
     ``depth`` items ahead on a thread pool."""
+    return prefetch_calls((functools.partial(iterable_factory, i) for i in range(length)), depth, workers)
+
+
+def prefetch_calls(calls: Iterator, depth: int = 4, workers: int = 2) -> Iterator:
+    """Run the zero-argument ``calls`` on a thread pool, up to ``depth``
+    ahead, and yield their results in order. The iterator itself is advanced
+    in the consumer's thread."""
     with ThreadPoolExecutor(workers) as pool:
         pending = deque()
-        nxt = 0
-        while nxt < length or pending:
-            while nxt < length and len(pending) < depth:
-                pending.append(pool.submit(iterable_factory, nxt))
-                nxt += 1
+        for call in calls:
+            pending.append(pool.submit(call))
+            if len(pending) >= depth:
+                yield pending.popleft().result()
+        while pending:
             yield pending.popleft().result()
 
 

@@ -5,6 +5,10 @@
   straight into the module; ``module.`` prefixes left by
   ``torch.nn.DataParallel`` are stripped (``src/utils/utils.py:88-94``).
 * :func:`save_torch_checkpoint` writes the same format.
+* :func:`load_torchvision_backbone` initialises the backbone from a
+  torchvision ImageNet ResNet checkpoint, dropping ``layer4.*`` and ``fc.*``
+  as the reference does (``resnet.py:194-199``: layer4's shapes differ in
+  the VOS topology, so it keeps its fresh initialisation, as the head does).
 * :func:`state_dict_from_jax` carries weights across from the JAX package:
   flax variables (as numpy) → this module's state dict. It inverts the JAX
   package's ``convert_vosnet_state_dict``: HWIO kernels become OIHW, and BN
@@ -55,6 +59,26 @@ def save_torch_checkpoint(net: torch.nn.Module, path) -> None:
     """Write ``{"state_dict": ...}`` as the reference trainer does."""
     sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
     torch.save({"state_dict": sd}, path)
+
+
+def load_torchvision_backbone(net: torch.nn.Module, state_dict: Mapping) -> torch.nn.Module:
+    """Copy a torchvision ResNet state dict (``conv1``, ``bn1``,
+    ``layer1..3``) into ``net.backbone`` (``backbone.0``, ``backbone.1``,
+    ``backbone.4..6``); ``layer4.*`` and ``fc.*`` are dropped. Every kept key
+    must exist in ``net`` with the same shape."""
+    target = net.state_dict()
+    seq = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5", "layer3": "6"}
+    merged = {}
+    for key, value in strip_module_prefix(state_dict).items():
+        head, rest = key.split(".", 1)
+        if head in ("fc", "layer4"):
+            continue
+        ours = f"backbone.{seq[head]}.{rest}"
+        if ours not in target or target[ours].shape != value.shape:
+            raise ValueError(f"{key}: no parameter {ours} of shape {tuple(value.shape)} in {type(net).__name__}")
+        merged[ours] = value
+    net.load_state_dict(merged, strict=False)
+    return net
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:

@@ -9,6 +9,11 @@ Topology (reference ``src/model/backbone/resnet.py``):
     (``inplanes == planes * 4`` and stride 1).
 
 Layout is NCHW, the reference's.
+
+Batch normalisation is :class:`BatchNorm2d`: in training it updates its
+running variance with the biased batch variance, as the JAX package's flax
+``BatchNorm`` does, where ``torch.nn.BatchNorm2d`` would use the unbiased
+one.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 STAGE_PLANES = (64, 128, 256, 256)
@@ -25,6 +31,31 @@ ARCH_LAYERS = {
     "resnet50": (3, 4, 6, 3),
     "resnet101": (3, 4, 23, 3),
 }
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training forward moves the running variance
+    toward the **biased** batch variance, as flax ``BatchNorm`` (momentum
+    0.9, the JAX package's ``resnet.py:219-227``) does; ``nn.BatchNorm2d``
+    uses the unbiased one, n / (n - 1) times larger. ``momentum=None``
+    (torch's cumulative average, which flax has no counterpart of) and
+    evaluation keep torch's own behaviour. The state-dict keys are
+    ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats and self.momentum is not None):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        # batch_norm keeps the variance buffer it updates for its backward,
+        # so it updates a copy: (1 - m) * var + m * v * n / (n - 1), v being
+        # the biased batch variance, which is recovered without a second
+        # pass over x
+        var = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.copy_(var - (var - (1.0 - self.momentum) * self.running_var) / n)
+        return out
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -39,12 +70,12 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
-            nn.Sequential(_conv(inplanes, planes, 1, stride), nn.BatchNorm2d(planes))
+            nn.Sequential(_conv(inplanes, planes, 1, stride), BatchNorm2d(planes))
             if downsample
             else None
         )
@@ -64,14 +95,14 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 1)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, stride)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = _conv(planes, planes * 4, 1)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
-            nn.Sequential(_conv(inplanes, planes * 4, 1, stride), nn.BatchNorm2d(planes * 4))
+            nn.Sequential(_conv(inplanes, planes * 4, 1, stride), BatchNorm2d(planes * 4))
             if downsample
             else None
         )
@@ -91,7 +122,7 @@ class ResNet(nn.Module):
         super().__init__()
         block_cls = BasicBlock if block == "basic" else Bottleneck
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes = 64
@@ -144,3 +175,21 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, nn.BatchNorm2d):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+
+
+def init_train_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """The JAX train CLI's initialisation, drawn from an explicit generator:
+    every conv kernel flax ``lecun_normal`` (a normal of standard deviation
+    sqrt(1 / fan_in) / 0.8796 truncated to two of those deviations, so its
+    variance is 1 / fan_in), BN scale 1 and bias 0, running mean 0 and
+    variance 1."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.reset_running_stats()

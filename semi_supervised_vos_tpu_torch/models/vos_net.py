@@ -14,9 +14,11 @@ so the state-dict keys are the reference's: ``backbone.0`` (conv1),
 
 from __future__ import annotations
 
+from typing import Dict
+
 from torch import nn
 
-from semi_supervised_vos_tpu_torch.models.resnet import resnet
+from semi_supervised_vos_tpu_torch.models.resnet import BatchNorm2d, resnet
 
 MODEL_NAMES = ("resnet18", "resnet50", "resnet101")
 
@@ -32,10 +34,16 @@ class VOSNet(nn.Module):
         self.backbone = nn.Sequential(*resnet(model).children_for_vos())
         if model != "resnet18":
             self.adjust_dim = nn.Conv2d(1024, 256, 1, bias=False)
-            self.bn256 = nn.BatchNorm2d(256)
+            self.bn256 = BatchNorm2d(256)
 
     def forward(self, x):
         x = self.backbone(x)
         if self.model != "resnet18":
             x = self.bn256(self.adjust_dim(x))
         return x
+
+    def frozen_backbone_mask(self) -> Dict[str, bool]:
+        """Parameter name → trainable when the feature extractor is frozen
+        (reference ``vos_net.py:53-54`` and ``train.py:124-128``): only the
+        head trains, so a resnet18, which has none, trains nothing."""
+        return {name: not name.startswith("backbone.") for name, _ in self.named_parameters()}

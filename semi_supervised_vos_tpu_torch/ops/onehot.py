@@ -1,5 +1,6 @@
-"""Label encoding: one-hot along a trailing class axis, and the standard
-DAVIS/PASCAL palette (reference ``src/utils/utils.py:59-68``)."""
+"""Label encoding: one-hot along a trailing class axis, nearest-centroid RGB
+quantisation, the standard DAVIS/PASCAL palette and the 22-colour centroid
+table (reference ``src/utils/utils.py:45-68``)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,16 @@ def index_to_onehot(idx: torch.Tensor, d: int, dtype=torch.float32) -> torch.Ten
     """(...,) integer class indices → (..., d) one-hot."""
     classes = torch.arange(d, device=idx.device, dtype=idx.dtype)
     return (idx[..., None] == classes).to(dtype)
+
+
+def color_to_class(img: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """(..., 3) RGB values → (...) int64 index of the nearest centroid.
+
+    The squared distances are sums of squared integer differences, exact in
+    float32 (no matmul, so TF32 cannot round them); ties resolve to the
+    lowest index, as ``argmin`` does in torch and in JAX."""
+    diff = img.float()[..., None, :] - centroids.float()
+    return torch.argmin((diff * diff).sum(-1), dim=-1)
 
 
 def davis_palette(n: int = 256) -> np.ndarray:
@@ -27,3 +38,13 @@ def davis_palette(n: int = 256) -> np.ndarray:
             c >>= 3
         palette[i] = (r, g, b)
     return palette
+
+
+def davis_centroids() -> np.ndarray:
+    """The 22-colour class-centroid table, (22, 3) int32: the palette's first
+    22 colours with the 192-valued channels stored as 191, as the
+    reference's ``annotation_centroids.npy`` holds them (191 vs 192 never
+    changes the nearest centroid of a palette colour)."""
+    table = davis_palette()[:22].astype(np.int32)
+    table[table == 192] = 191
+    return table

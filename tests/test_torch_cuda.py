@@ -279,3 +279,65 @@ def test_lockstep_engine_matches_single_engines(card, nprng):
         masks = torch.cat([single.step_chunk_small(clips[s : s + 8, v], st, s)[0] for s in range(1, n, 8)])
         assert masks.max().item() >= 1  # the comparison is not between constant masks
         assert (lockstep[:, v] == masks).double().mean().item() >= 0.999, v
+
+
+def _train_clip(nprng, b, t, crop):
+    """Random frames; annotations with two objects of the DAVIS palette."""
+    imgs = nprng.integers(0, 255, (b, t, crop, crop, 3)).astype(np.uint8)
+    anns = np.zeros((b, t, crop, crop, 3), np.uint8)
+    anns[:, :, crop // 8 : crop // 2, crop // 6 : crop * 2 // 3] = [128, 0, 0]
+    anns[:, :, crop * 9 // 16 : crop * 15 // 16, crop // 2 : crop * 15 // 16] = [0, 128, 0]
+    return imgs, anns
+
+
+def _train_step(card, arch, spec, imgs, anns, geometry_fn=None):
+    from semi_supervised_vos_tpu_torch.cli.train import build_train_net
+    from semi_supervised_vos_tpu_torch.ops.onehot import davis_centroids
+    from semi_supervised_vos_tpu_torch.train.loop import make_train_step
+    from semi_supervised_vos_tpu_torch.train.train_state import make_optimizer
+
+    net = build_train_net(arch, card).train()
+    step = make_train_step(net, spec, make_optimizer(net.parameters()))
+    extra = ()
+    if geometry_fn is not None:
+        extra = (tuple(torch.as_tensor(g, device=card) for g in geometry_fn(anns)),)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    loss = step(torch.as_tensor(imgs, device=card), torch.as_tensor(anns, device=card),
+                torch.as_tensor(davis_centroids(), dtype=torch.float32, device=card),
+                torch.Generator(device=card).manual_seed(0), *extra)
+    return loss.item(), net, before
+
+
+def test_full_width_train_step(card, nprng):
+    """One cross-entropy step of resnet50 at the train CLI's defaults (bs 16
+    x 10 frames x 256^2): the loss is finite and every parameter moves."""
+    from semi_supervised_vos_tpu_torch.train.loop import LossSpec
+
+    imgs, anns = _train_clip(nprng, 16, 10, 256)
+    loss, net, before = _train_step(card, "resnet50", LossSpec(name="cross_entropy"), imgs, anns)
+    assert np.isfinite(loss)
+    after = net.state_dict()
+    for name, _ in net.named_parameters():
+        assert not torch.equal(after[name], before[name]), name
+
+
+def test_pipelined_skeleton_step_matches_host_path(card, nprng, monkeypatch):
+    """The skeleton miner on the card: pipelined by default (host geometry
+    into the step, the picks on the card), and the same loss as the host
+    path (budget above the candidates, so both mine one triplet set)."""
+    from semi_supervised_vos_tpu_torch.ops.onehot import davis_centroids
+    from semi_supervised_vos_tpu_torch.train.loop import LossSpec, make_geometry_fn, mining_mode
+    from semi_supervised_vos_tpu_torch.train.miners import get_miner
+
+    torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.delenv("SVOS_MINING", raising=False)
+    imgs, anns = _train_clip(nprng, 2, 3, 64)
+    spec = LossSpec(name="triplet", miner=get_miner("skeleton"))
+    assert mining_mode(spec, card) == "pipelined"
+    geometry_fn = make_geometry_fn(spec, davis_centroids(), card)
+    pipelined, _, _ = _train_step(card, "resnet18", spec, imgs, anns, geometry_fn)
+    monkeypatch.setenv("SVOS_MINING", "callback")
+    assert make_geometry_fn(spec, davis_centroids(), card) is None
+    host, _, _ = _train_step(card, "resnet18", spec, imgs, anns)
+    assert np.isfinite(pipelined)
+    np.testing.assert_allclose(pipelined, host, rtol=1e-5)
