@@ -25,8 +25,8 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
      480p geometries (C/C4 512/128 and 1024/256), N = 1 and 8, timed beside
      three cuDNN convolutions doing the same block; the strategies' 69x123
      and 54x97 grids and partial batches (N = 3), checked;
-  6. the BN-folded bf16 encoder (11 bottleneck launches) against the
-     unfolded float32 module on one 480x854 frame;
+  6. the BN-folded bf16 resnet50 encoder (11 bottleneck launches) against
+     the unfolded float32 module on one 480x854 frame;
   7. the main path: ``inference`` (default device) then ``evaluation`` on a
      synthetic 480p DAVIS tree with random resnet50 weights; the launch
      counters show that every frame went through both kernels; the card's
@@ -59,13 +59,21 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
      epochs, ``--early-stop``), ``validation`` on its checkpoints, then
      ``inference`` and ``evaluation`` with the last one, clips/s and J&F;
      no hand-written kernel launches on the training path; (c) one resnet18
-     step on the card against the CPU with TF32 off.
+     step on the card against the CPU with TF32 off;
+ 12. facebook (2048-wide layer4, a two-conv head) at full width: (a) its
+     encoder against the float32 module (8 bottleneck launches), and both
+     TF32 flags left True by a single and a lockstep engine's step; (b)
+     ``inference --model facebook`` then ``evaluation`` on the main path's
+     tree, device ms per frame, card vs CPU masks on the small clip; (c)
+     ``multimodel`` with facebook as the second network; (d) one lockstep
+     chunk at facebook's lane cap at 480p and 1080p under 85 % of the card;
+     (e) one cross-entropy train step at bs 16 x 10 frames x 256^2.
 
 Times are medians of 20 CUDA-event timings, printed with their p10-p90
 spread. The line before the last is the card's name and power limit as
 nvidia-smi reports them, the one before that a JSON summary of every
-kernel, and before that JSON lines for the strategies, the lockstep phase
-and training.
+kernel, and before that JSON lines for the strategies, the lockstep phase,
+training and facebook.
 """
 
 from __future__ import annotations
@@ -92,13 +100,25 @@ STATS_GATE = 3.2e-5  # combined stats shards vs float32 (JAX on-chip gate)
 # it rounds the softmax weights to bf16 before their product with the labels
 SDPA_GATE = 4e-3
 ENCODER_MIN_COS = 0.9999
+# fused-bottleneck launches per encode call: the stride-1 blocks of 512 to
+# 1024 channels without a downsample branch (models/infer_fast.py)
+BOTTLENECK_LAUNCHES = {"resnet50": 11, "facebook": 8}
 H480, W480 = 480, 854
+H1080, W1080 = 1080, 1920
 SMALL_CLIP = (120, 214, 12)  # h, w, frames of the card-vs-CPU mask checks
 STRATEGY_FRAMES = 17  # 16 propagated frames: two whole chunks, past frame 15's dense/sparse switch
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+START = time.perf_counter()
+
+
+def stage(name: str) -> None:
+    """Mark a phase's start with the seconds since the script started."""
+    log(f"== {name} (at {time.perf_counter() - START:.1f} s)")
 
 
 def card_line() -> str:
@@ -546,16 +566,16 @@ def bottleneck_phase(torch, dev, rng):
 # ---- phases 6 to 9: encoder, main path, kernel 3's path, strategies ------
 
 
-def random_vosnet(torch, seed: int):
-    """resnet50 VOSNet with reference-style random weights and perturbed BN
-    running statistics, drawn from one generator: the JAX package's recipe
-    for its encoder gate. Its features all but share one direction (a
-    per-pixel cosine of 0.999 to their mean), so label propagation with it
-    returns background everywhere."""
+def random_vosnet(torch, seed: int, arch: str = "resnet50"):
+    """VOSNet with reference-style random weights and perturbed BN running
+    statistics, drawn from one generator: the JAX package's recipe for its
+    encoder gate. Its features all but share one direction (a per-pixel
+    cosine of 0.999 to their mean), so label propagation with it returns
+    background everywhere."""
     from semi_supervised_vos_tpu_torch.models.resnet import init_weights
     from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
 
-    net = VOSNet("resnet50").eval()
+    net = VOSNet(arch).eval()
     g = torch.Generator().manual_seed(seed)
     init_weights(net, g)
     with torch.no_grad():
@@ -566,8 +586,8 @@ def random_vosnet(torch, seed: int):
     return net
 
 
-def calibrated_vosnet(torch, dev, seed: int, frames_u8: np.ndarray):
-    """resnet50 VOSNet whose features tell pixels apart, so that propagated
+def calibrated_vosnet(torch, dev, seed: int, frames_u8: np.ndarray, arch: str = "resnet50"):
+    """VOSNet whose features tell pixels apart, so that propagated
     masks carry the objects: random convolutions and perturbed BN affine
     parameters from one generator, each residual branch's last BN scale cut
     to a tenth, and the BN running statistics estimated on ``frames_u8``
@@ -578,7 +598,7 @@ def calibrated_vosnet(torch, dev, seed: int, frames_u8: np.ndarray):
     from semi_supervised_vos_tpu_torch.models.resnet import Bottleneck, init_weights
     from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
 
-    net = VOSNet("resnet50")
+    net = VOSNet(arch)
     g = torch.Generator().manual_seed(seed)
     init_weights(net, g)
     bns = [m for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)]
@@ -629,6 +649,9 @@ def make_davis_tree(root: Path, videos: dict, size, seed: int) -> None:
 
 
 def encoder_phase(torch, dev, net, frame_u8):
+    """The BN-folded bf16 encoder against the float32 module on one 480p
+    frame, with its fused-bottleneck launches (11 for resnet50, 8 for
+    facebook, whose 2048-wide layer4 runs on cuDNN)."""
     from semi_supervised_vos_tpu_torch.infer.engine import IMAGENET_MEAN, IMAGENET_STD
     from semi_supervised_vos_tpu_torch.models.fold import fold_vosnet
     from semi_supervised_vos_tpu_torch.models.infer_fast import fast_encode
@@ -642,32 +665,39 @@ def encoder_phase(torch, dev, net, frame_u8):
     with torch.no_grad():
         table = fold_vosnet(net, torch.bfloat16)
         bottleneck_block.launches = 0
-        fast = fast_encode(table, x, torch.bfloat16).float()
+        fast = fast_encode(table, x, torch.bfloat16, arch=net.model).float()
         launches = bottleneck_block.launches
         ref = net(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     cos = torch.nn.functional.cosine_similarity(fast.reshape(-1, 256), ref.reshape(-1, 256), dim=-1)
-    log(f"encoder 480x854: features {tuple(fast.shape)}, min per-pixel cosine {cos.min().item():.6f}, "
+    log(f"encoder {net.model} 480x854: features {tuple(fast.shape)}, min per-pixel cosine {cos.min().item():.6f}, "
         f"bottleneck launches {launches}")
     check(bool(torch.isfinite(fast).all()) and cos.min().item() >= ENCODER_MIN_COS,
-          f"encoder min cosine >= {ENCODER_MIN_COS}")
-    check(launches == 11, "11 fused bottleneck launches per encode")
+          f"{net.model} encoder min cosine >= {ENCODER_MIN_COS}")
+    check(launches == BOTTLENECK_LAUNCHES[net.model], f"{BOTTLENECK_LAUNCHES[net.model]} fused bottleneck launches "
+          f"per {net.model} encode")
+    return cos.min().item()
 
 
 def main_path_phase(torch, dev, work: Path, net, videos: dict):
+    """``inference`` (default device) with ``net``'s model, then
+    ``evaluation``, on the main path's tree."""
     from PIL import Image
 
     from semi_supervised_vos_tpu_torch.eval.evaluation import evaluation_command_impl
     from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
     from semi_supervised_vos_tpu_torch.models.convert import save_torch_checkpoint
 
-    ckpt, save = work / "resnet50.pth.tar", work / "pred"
+    arch = net.model
+    ckpt, save = work / f"{arch}.pth.tar", work / f"pred_{arch}"
     save_torch_checkpoint(net, ckpt)
     # default --device: cuda
-    wall, launches = cli_run(torch, ["inference", "-d", str(work / "davis"), "-r", str(ckpt), "-s", str(save)])
+    wall, launches = cli_run(torch, ["inference", "-d", str(work / "davis"), "-r", str(ckpt), "-s", str(save),
+                                     "--model", arch])
     n_frames = sum(videos.values())
     chunk = chunk_len()
     encode_batches = sum(1 + math.ceil((n - 1) / chunk) for n in videos.values())
-    log(f"main path: {n_frames} frames in {wall:.3f} s = {n_frames / wall:.3f} fps end to end; launches {launches}")
+    log(f"main path {arch}: {n_frames} frames in {wall:.3f} s = {n_frames / wall:.3f} fps end to end; "
+        f"launches {launches}")
     for video, n in videos.items():
         pngs = sorted((save / video).glob("*.png"))
         check([p.name for p in pngs] == [f"{t:05d}.png" for t in range(n)], f"{video}: one PNG per frame ({n})")
@@ -675,9 +705,11 @@ def main_path_phase(torch, dev, work: Path, net, videos: dict):
         check(classes == [0, 1, 2], f"{video}: the predicted masks carry both objects ({classes})")
     check(launches["affinity_bank"] == n_frames - len(videos), "one affinity launch per propagated frame")
     check(launches["affinity_propagate"] == 0, "no affinity_propagate_fused launch on the main path")
-    check(launches["bottleneck"] == 11 * encode_batches, f"11 bottleneck launches x {encode_batches} encode batches")
+    per_call = BOTTLENECK_LAUNCHES[arch]
+    check(launches["bottleneck"] == per_call * encode_batches,
+          f"{per_call} bottleneck launches x {encode_batches} encode batches")
     j, f, jf = evaluation_command_impl(work / "davis" / "Annotations" / "480p", save)
-    log(f"main path J={j:.6f} F={f:.6f} J&F={jf:.6f}")
+    log(f"main path {arch} J={j:.6f} F={f:.6f} J&F={jf:.6f}")
     check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in (j, f, jf)), "J&F finite in [0, 1]")
     return launches, n_frames / wall, jf
 
@@ -709,7 +741,7 @@ def engine_timing(torch, dev, net, work: Path, video: str, n: int):
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / n
-    log(f"engine on the card, decoded frames: {ms:.4f} ms/frame ({1000.0 / ms:.3f} fps) over {n} frames")
+    log(f"{net.model} engine on the card, decoded frames: {ms:.4f} ms/frame ({1000.0 / ms:.3f} fps) over {n} frames")
     return ms
 
 
@@ -746,9 +778,11 @@ def small_clip_parity(torch, dev, net, work: Path):
     net.to(dev)
     agree = float((out["cpu"] == out[str(dev)]).mean())
     classes = np.unique(out["cpu"]).tolist()
-    log(f"small clip {h}x{w}, {n} frames: CPU mask classes {classes}, card vs CPU mask agreement {agree:.6f}")
-    check(classes == [0, 1, 2], "the CPU engine's masks carry both objects")
-    check(agree >= 0.98, "card masks agree with the CPU engine on >= 98% of pixels")
+    log(f"small clip {h}x{w}, {n} frames, {net.model}: CPU mask classes {classes}, card vs CPU mask agreement "
+        f"{agree:.6f}")
+    check(classes == [0, 1, 2], f"{net.model}: the CPU engine's masks carry both objects")
+    check(agree >= 0.98, f"{net.model}: card masks agree with the CPU engine on >= 98% of pixels")
+    return agree
 
 
 def load_video(work: Path, tree: str, video: str, n: int):
@@ -1196,11 +1230,12 @@ def lockstep_kernels(torch, dev, rng):
     return res
 
 
-def lockstep_memory(torch, dev, net, work: Path):
-    """10d: peak device memory of one chunk (start_videos + one 8-step
-    chunk) at 480p (B = 1, 8) and 1080p (B = 1, 2), the bytes per lane, and
-    one chunk at ``_hbm_lanes_cap`` lanes at each resolution, which must
-    stay under 85 % of the card's memory (the anchors of
+def lockstep_memory(torch, dev, net, work: Path, slopes: bool = True):
+    """10d (and 12d for facebook): peak device memory of one chunk
+    (start_videos + one 8-step chunk) at 480p (B = 1, 8) and 1080p (B = 1,
+    2), the bytes per lane (with ``slopes``), and one chunk at
+    ``_hbm_lanes_cap`` lanes for ``net``'s model at each resolution, which
+    must stay under 85 % of the card's memory (the anchors of
     ``infer/batched.py`` aim it at 70 %)."""
     from semi_supervised_vos_tpu_torch.infer.batched import BatchedPropagationEngine, _hbm_lanes_cap
     from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig
@@ -1236,22 +1271,25 @@ def lockstep_memory(torch, dev, net, work: Path):
         return used, top
 
     res = {}
-    for name, hw, bs in (("480p", (H480, W480), (1, 8)), ("1080p", (1080, 1920), (1, 2))):
-        used = {b: peak(hw, b)[0] for b in bs}
-        per_lane = (used[bs[1]] - used[bs[0]]) / (bs[1] - bs[0])
-        lanes = _hbm_lanes_cap(hw)
+    for name, hw, bs in (("480p", (H480, W480), (1, 8)), ("1080p", (H1080, W1080), (1, 2))):
+        lanes = _hbm_lanes_cap(hw, net.model)
         cap_used, cap_top = peak(hw, lanes)
         share = cap_top / total
         # at the cap an encode call takes one step of every lane, so the
         # chunk's bytes per lane there are what sets the anchors
-        log(f"lockstep memory {name}: one chunk B={bs[0]} {used[bs[0]] / 1e9:.4f} GB, B={bs[1]} "
-            f"{used[bs[1]] / 1e9:.4f} GB, {per_lane / 1e9:.4f} GB per added lane; at the lane cap ({lanes} lanes, one "
-            f"step of each per encode call) {cap_used / 1e9:.4f} GB = {cap_used / lanes / 1e9:.4f} GB per lane, peak "
-            f"{cap_top / 1e9:.4f} GB = {share:.4f} of {total / 1e9:.3f} GB")
-        check(share < 0.85, f"{name}: one chunk at {lanes} lanes peaks under 85% of the card's memory")
-        res[name] = dict(bytes_b1=used[bs[0]], bytes_b2_or_b8=used[bs[1]], bytes_per_lane=per_lane,
-                         cap_lanes=lanes, cap_bytes=cap_used, cap_bytes_per_lane=cap_used / lanes, cap_peak=cap_top,
+        msg = (f"at the lane cap ({lanes} lanes, one step of each per encode call) {cap_used / 1e9:.4f} GB = "
+               f"{cap_used / lanes / 1e9:.4f} GB per lane, peak {cap_top / 1e9:.4f} GB = {share:.4f} of "
+               f"{total / 1e9:.3f} GB")
+        res[name] = dict(cap_lanes=lanes, cap_bytes=cap_used, cap_bytes_per_lane=cap_used / lanes, cap_peak=cap_top,
                          cap_share=share)
+        if slopes:
+            used = {b: peak(hw, b)[0] for b in bs}
+            per_lane = (used[bs[1]] - used[bs[0]]) / (bs[1] - bs[0])
+            msg = (f"one chunk B={bs[0]} {used[bs[0]] / 1e9:.4f} GB, B={bs[1]} {used[bs[1]] / 1e9:.4f} GB, "
+                   f"{per_lane / 1e9:.4f} GB per added lane; " + msg)
+            res[name].update(bytes_b1=used[bs[0]], bytes_b2_or_b8=used[bs[1]], bytes_per_lane=per_lane)
+        log(f"lockstep memory {net.model} {name}: " + msg)
+        check(share < 0.85, f"{net.model} {name}: one chunk at {lanes} lanes peaks under 85% of the card's memory")
     res["total_bytes"] = total
     return res
 
@@ -1307,11 +1345,13 @@ def conv_flops(torch, net, x) -> float:
     return sum(total)
 
 
-def training_steps(torch, dev, work: Path):
-    """11a: the port's train step at full width (resnet50, bs 16 x 10 frames
-    x 256^2 crops of a 480p tree) for each loss, from the same initial
-    weights; device ms per step (CUDA events), peak memory, losses finite;
-    then cross-entropy for TRAIN_FALL_STEPS steps on one fixed batch."""
+def training_steps(torch, dev, work: Path, arch: str = "resnet50", runs=TRAIN_RUNS,
+                   fall_steps: int = TRAIN_FALL_STEPS):
+    """11a (and 12e for facebook): the port's train step at full width (bs
+    16 x 10 frames x 256^2 crops of a 480p tree) for each of ``runs``, from
+    the same initial weights; device ms per step (CUDA events), peak memory,
+    losses finite; then cross-entropy for ``fall_steps`` steps on one fixed
+    batch."""
     from semi_supervised_vos_tpu_torch.cli.train import build_train_net, make_spec
     from semi_supervised_vos_tpu_torch.data.davis import TrainDataset
     from semi_supervised_vos_tpu_torch.ops.onehot import davis_centroids
@@ -1324,13 +1364,13 @@ def training_steps(torch, dev, work: Path):
     imgs, anns = next(iterate_batches(ds, TRAIN_BS, num_workers=8))
     imgs_d, anns_d = torch.as_tensor(imgs, device=dev), torch.as_tensor(anns, device=dev)
     centroids = torch.as_tensor(davis_centroids(), dtype=torch.float32, device=dev)
-    net = build_train_net("resnet50", dev)
+    net = build_train_net(arch, dev)
     start = {k: v.clone() for k, v in net.state_dict().items()}
     x = (imgs_d.reshape(-1, TRAIN_CROP, TRAIN_CROP, 3).float() / 255.0).permute(0, 3, 1, 2)
     fwd_flops = conv_flops(torch, net, x)
     del x
     total = torch.cuda.get_device_properties(0).total_memory
-    log(f"train batch {tuple(imgs.shape)} uint8; resnet50 forward {fwd_flops / 1e12:.4f} TFLOP of convolutions a step "
+    log(f"train batch {tuple(imgs.shape)} uint8; {arch} forward {fwd_flops / 1e12:.4f} TFLOP of convolutions a step "
         f"({fwd_flops / imgs.shape[0] / imgs.shape[1] / 1e9:.3f} GFLOP an image)")
 
     def fresh_step(loss, miner, bf16):
@@ -1352,7 +1392,7 @@ def training_steps(torch, dev, work: Path):
         return (lambda: step(imgs_d, anns_d, centroids, generator, *extra)), geo_ms
 
     results = {}
-    for label, loss, miner, bf16 in TRAIN_RUNS:
+    for label, loss, miner, bf16 in runs:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         step, geo_ms = fresh_step(loss, miner, bf16)
@@ -1365,17 +1405,19 @@ def training_steps(torch, dev, work: Path):
                  peak_share=peak / total, loss_first=float(vals[0]), loss_last=float(vals[-1]))
         if geo_ms is not None:
             r["host_geometry_ms"] = geo_ms
-        log(f"train step {label}: {t:.3f} ms = {r['steps_per_s']:.3f} steps/s ({r['clips_per_s']:.2f} clips/s, "
+        log(f"train step {arch} {label}: {t:.3f} ms = {r['steps_per_s']:.3f} steps/s ({r['clips_per_s']:.2f} clips/s, "
             f"{r['model_tflops_per_s']:.1f} TFLOP/s at 3x the forward), peak {peak / 2**30:.3f} GiB = "
             f"{r['peak_share']:.4f} of the card, losses {r['loss_first']:.6f} .. {r['loss_last']:.6f}"
             + (f", host geometry {geo_ms:.3f} ms a batch" if geo_ms is not None else ""))
         check(bool(torch.isfinite(vals).all()), f"{label}: every loss finite")
         results[label] = r
-    step, _ = fresh_step("cross_entropy", None, False)
-    fall = torch.stack([step() for _ in range(TRAIN_FALL_STEPS)]).cpu().tolist()
-    log(f"cross_entropy over {TRAIN_FALL_STEPS} steps on one batch: " + " ".join(f"{v:.5f}" for v in fall))
-    check(all(math.isfinite(v) for v in fall) and fall[-1] < 0.9 * fall[0],
-          f"cross-entropy falls by more than 10 % over {TRAIN_FALL_STEPS} steps")
+    fall = []
+    if fall_steps:
+        step, _ = fresh_step("cross_entropy", None, False)
+        fall = torch.stack([step() for _ in range(fall_steps)]).cpu().tolist()
+        log(f"cross_entropy over {fall_steps} steps on one batch: " + " ".join(f"{v:.5f}" for v in fall))
+        check(all(math.isfinite(v) for v in fall) and fall[-1] < 0.9 * fall[0],
+              f"cross-entropy falls by more than 10 % over {fall_steps} steps")
     del net, step
     torch.cuda.empty_cache()
     return results, dict(fwd_tflop=fwd_flops / 1e12, fall=fall)
@@ -1476,6 +1518,81 @@ def training_phase(torch, dev, work: Path):
                 cli=cli_res, card_vs_cpu=parity)
 
 
+# ---- phase 12: facebook ----------------------------------------------------
+
+
+def tf32_flags_kept(torch, dev, net, frames_u8, label):
+    """With both TF32 flags True, building a single and a lockstep engine
+    and running one step of each leaves them True; the flags are restored
+    after."""
+    from semi_supervised_vos_tpu_torch.infer.batched import BatchedPropagationEngine
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        engine = PropagationEngine(net, frames_u8.shape[1:3], EngineConfig(), dev)
+        engine.step_chunk_small(frames_u8[1:2], engine.start_video(frames_u8[0], label), 1)
+        lockstep = BatchedPropagationEngine(net, frames_u8.shape[1:3], 2, EngineConfig(), dev)
+        pair = np.stack([frames_u8[:2]] * 2, axis=1)
+        lockstep.step_chunk_small(pair[1:2], lockstep.start_videos(pair[0], np.stack([label] * 2)), 1)
+        torch.cuda.synchronize()
+        kept = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    log(f"TF32 flags after a {net.model} single and lockstep engine step: cudnn {kept[0]}, matmul {kept[1]}")
+    check(kept == (True, True), "building and stepping the engines leaves both TF32 flags as the caller set them")
+
+
+def facebook_multimodel(torch, work: Path, n: int):
+    """12c: ``multimodel`` through the CLI with resnet50 first and facebook
+    (``--additional-model-type facebook``) second, on the strategies' clip."""
+    from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
+
+    tree, save = work / "strategies", work / "facebook_multimodel"
+    args = ["inference", "-d", str(tree), "-r", str(work / "resnet50.pth.tar"), "-s", str(save),
+            "--inference-strategy", "multimodel", "--additional-model", str(work / "facebook.pth.tar"),
+            "--additional-model-type", "facebook"]
+    wall, launches = cli_run(torch, args)
+    chunks = math.ceil((n - 1) / chunk_len())
+    expect = {"affinity_bank": 2 * chunks * chunk_len(), "affinity_propagate": 0,
+              "bottleneck": sum(BOTTLENECK_LAUNCHES.values()) * (1 + chunks)}
+    jf = check_outputs(save, tree / "Annotations" / "480p", {"clip": n}, "multimodel resnet50 + facebook")
+    log(f"multimodel resnet50 + facebook: {n} frames in {wall:.3f} s = {n / wall:.3f} fps end to end, J&F {jf:.6f}, "
+        f"launches {launches}")
+    check(launches == expect, f"multimodel resnet50 + facebook: launches {expect}")
+    return dict(fps=n / wall, seconds=wall, jf=jf, launches=launches)
+
+
+def facebook_phase(torch, dev, work: Path, videos: dict):
+    """Phase 12: the facebook model at full width (2048-wide layer4, 480p):
+    (a) the encoder gate with its 8 bottleneck launches, and the TF32 flags
+    left alone by its engines; (b) ``inference --model facebook`` then
+    ``evaluation`` on the main path's tree, device ms per frame, card vs CPU
+    masks; (c) multimodel with facebook second; (d) one lockstep chunk at
+    facebook's lane cap at 480p and 1080p; (e) one full-width train step."""
+    frames, label = load_video(work, "davis", "long", 4)
+    res = {"encoder_min_cosine": encoder_phase(torch, dev, random_vosnet(torch, 0, "facebook"), frames[0])}
+    net = calibrated_vosnet(torch, dev, 0, frames, "facebook")
+    tf32_flags_kept(torch, dev, net, frames[:2], label)
+    launches, fps, jf = main_path_phase(torch, dev, work, net, videos)
+    res.update(main_path=dict(fps=fps, jf=jf, launches=launches))
+    res["main_path"]["engine_ms_per_frame"] = engine_timing(torch, dev, net, work, "long", videos["long"])
+    res["main_path"]["card_vs_cpu_agreement"] = small_clip_parity(torch, dev, net, work)
+    res["multimodel"] = facebook_multimodel(torch, work, STRATEGY_FRAMES)
+    res["memory"] = lockstep_memory(torch, dev, net, work, slopes=False)
+    del net
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        steps, extra = training_steps(torch, dev, work, "facebook", TRAIN_RUNS[:1], fall_steps=0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    res["train_step"] = dict(precision="cuDNN convolutions TF32 (PyTorch default), matmuls float32",
+                             fwd_tflop=extra["fwd_tflop"], **steps["cross_entropy"])
+    return res
+
+
 def main() -> int:
     if not (ROOT / "semi_supervised_vos_tpu_torch" / "__init__.py").is_file():
         log("FAILED: the semi_supervised_vos_tpu_torch package is not beside this script")
@@ -1508,6 +1625,7 @@ def main() -> int:
                 log(f"  {name} ptxas: {line.strip()}")
 
     rng = np.random.default_rng(0)
+    stage("phases 2-5: kernels")
     aff = affinity_phase(torch, dev, rng)
     prop = propagate_phase(torch, dev, rng)
     prob = probability_phase(torch, dev, rng)
@@ -1523,6 +1641,7 @@ def main() -> int:
 
         frames = np.stack([np.asarray(Image.open(work / "davis" / "JPEGImages" / "480p" / "long" / f"{t:05d}.jpg"))
                            for t in range(4)])
+        stage("phases 6-9: encoder, main path, kernel 3's path, strategies")
         encoder_phase(torch, dev, random_vosnet(torch, seed=0), frames[0])
         net = calibrated_vosnet(torch, dev, 0, frames)
         launches, fps, jf = main_path_phase(torch, dev, work, net, videos)
@@ -1533,6 +1652,7 @@ def main() -> int:
         prop_launches = propagate_path(torch, dev, net, work, "clip", STRATEGY_FRAMES)
         strategies = strategies_phase(torch, dev, work, net, calibrated_vosnet(torch, dev, 1, frames), STRATEGY_FRAMES)
         strategies_cpu_parity(torch, work)
+        stage("phase 10: lockstep")
         lockstep_videos = {f"v{i}": 17 if i % 2 == 0 else 12 for i in range(8)}
         make_davis_tree(work / "lockstep", lockstep_videos, (H480, W480), seed=3)
         lockstep = {"cli": lockstep_cli(torch, work, lockstep_videos)}
@@ -1542,7 +1662,11 @@ def main() -> int:
         lockstep["single_engine_ms_per_frame"] = engine_ms
         lockstep["kernels"] = lockstep_kernels(torch, dev, rng)
         lockstep["memory"] = lockstep_memory(torch, dev, net, work)
+        stage("phase 11: training")
         training = training_phase(torch, dev, work)
+        stage("phase 12: facebook")
+        facebook = facebook_phase(torch, dev, work, videos)
+    stage("summary")
     log(f"main path on {card}: {fps:.3f} fps end to end (CLI, decode and PNG writes included), "
         f"{engine_ms:.4f} ms/frame on the device (decoded frames), J&F {jf:.6f}")
     for name, r in strategies.items():
@@ -1556,6 +1680,12 @@ def main() -> int:
                                             for k, r in training["steps"].items())
         + f"; train CLI {training['cli']['clips_per_s']:.3f} clips/s end to end, J&F after inference "
         f"{training['cli']['jf']:.6f}")
+    fb, fb_step = facebook["main_path"], facebook["train_step"]
+    log(f"facebook on {card}: main path {fb['fps']:.3f} fps end to end, {fb['engine_ms_per_frame']:.4f} ms/frame on "
+        f"the device, J&F {fb['jf']:.6f}; multimodel with resnet50 {facebook['multimodel']['fps']:.3f} fps; train "
+        f"step {fb_step['ms']:.3f} ms ({fb_step['steps_per_s']:.3f} steps/s), peak {fb_step['peak_share']:.4f} of the "
+        "card; lane cap " + ", ".join(f"{k} {facebook['memory'][k]['cap_lanes']} lanes, peak "
+                                      f"{facebook['memory'][k]['cap_share']:.4f} of the card" for k in ("480p", "1080p")))
 
     # launches: the main path's (kernel 3: its own path's); launches_by_path:
     # each strategy's run; prob_*: probability mode at 480p, where
@@ -1565,6 +1695,8 @@ def main() -> int:
         by_path[k]["lockstep single --video-batch 8"] = lc["launches_vb8"][k]
         for name, r in lockstep["strategies"].items():
             by_path[k][f"lockstep {name} --video-batch 2"] = r["launches"][k]
+        by_path[k]["facebook single"] = fb["launches"][k]
+        by_path[k]["multimodel resnet50 + facebook"] = facebook["multimodel"]["launches"][k]
     lk = lockstep["kernels"]
     prob_keys = dict(prob_bound_ms=prob["bound_ms"], prob_bound_by=prob["bound_by"], prob_library_ms=prob["library_ms"])
     kernels = [
@@ -1587,6 +1719,7 @@ def main() -> int:
                                      for name, r in strategies.items()}}))
     print(json.dumps({"lockstep": lockstep}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"facebook": facebook}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,9 @@
 ``--device`` takes ``cuda`` (the default) or ``cpu``; ``cuda`` without a
 card raises. All seven strategies run, in label and probability mode, one
 video at a time or, with ``--video-batch`` > 1, that many videos in
-lockstep (``infer/batched.py``). Options this port does not have yet raise
-a clear error: ``--bank-shards`` / ``--dp-shards`` > 1 and the ``facebook``
-model.
+lockstep (``infer/batched.py``), with any of the four models (also as
+multimodel's ``--additional-model-type``). Options this port does not have
+yet raise a clear error: ``--bank-shards`` / ``--dp-shards`` > 1.
 """
 
 from __future__ import annotations
@@ -68,16 +68,12 @@ def inference_command(ref_num, data, resume, model, temperature, frame_range, si
         raise click.ClickException(str(err)) from err
 
 
-def check_supported(model, inference_strategy, additional_resume, additional_model_type, bank_shards,
-                    dp_shards) -> None:
+def check_supported(inference_strategy, additional_resume, bank_shards, dp_shards) -> None:
     """Raise NotImplementedError for an option this port does not run yet, and
     a usage error for multimodel without its second checkpoint."""
     if bank_shards != 1 or dp_shards != 1:
         raise NotImplementedError("--bank-shards / --dp-shards > 1 (multi-device) are not ported")
-    multimodel = inference_strategy == "multimodel"
-    if model == "facebook" or (multimodel and additional_model_type == "facebook"):
-        raise NotImplementedError("--model facebook is not ported")
-    if multimodel and additional_resume is None:
+    if inference_strategy == "multimodel" and additional_resume is None:
         raise click.UsageError("--inference-strategy multimodel needs --additional-model")
 
 
@@ -86,7 +82,7 @@ def inference_command_impl(ref_num, data, resume, model, temperature, frame_rang
                            additional_model_type="resnet50", probability_propagation=False, scale=1.15,
                            reduction="mean", video_batch=1, bank_shards=1, dp_shards=1, disable=False):
     """Reference ``src/inference.py:54-113``."""
-    check_supported(model, inference_strategy, additional_resume, additional_model_type, bank_shards, dp_shards)
+    check_supported(inference_strategy, additional_resume, bank_shards, dp_shards)
     from semi_supervised_vos_tpu_torch.data.davis import InferenceDataset
     from semi_supervised_vos_tpu_torch.infer import strategies
     from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig

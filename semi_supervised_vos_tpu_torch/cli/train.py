@@ -2,8 +2,8 @@
 ``src/train.py:25-49``) on the PyTorch train loop.
 
 ``--device`` takes ``cuda`` (the default) or ``cpu``; ``cuda`` without a
-card raises. Not ported yet, and refused: ``--tp`` > 1 and ``--model
-facebook``. On a host with several cards the port trains on the first
+card raises. Not ported yet, and refused: ``--tp`` > 1. On a host with
+several cards the port trains on the first
 (the JAX package's data-parallel mesh is not ported). Checkpoints are
 reference-format ``.pth.tar`` files (``train/train_state.py``).
 """
@@ -48,7 +48,7 @@ LOSS_CHOICES = ["cross_entropy", "focal", "contrastive", "triplet"]
 @click.option("--model", "model_name", type=click.Choice(["resnet18", "resnet50", "resnet101", "facebook"]),
               default="resnet50", help="Backbone.")
 @click.option("--pretrained", type=click.Path(file_okay=True, dir_okay=False), default=None,
-              help="Local torchvision ImageNet checkpoint for the backbone (layer4 and fc dropped).")
+              help="Local torchvision ImageNet checkpoint for the backbone (fc dropped; layer4 too but for facebook).")
 @click.option("--device", type=click.Choice(["cuda", "cpu"]), default="cuda", help="Device to run computing on.")
 @click.option("--bf16/--no-bf16", default=False,
               help="bfloat16 autocast over the forward (float32 parameters and gradients).")
@@ -65,11 +65,9 @@ def train_command(frame_num, training, validation, resume, save_model, epochs, b
         raise click.ClickException(str(err)) from err
 
 
-def check_supported(model_name: str, tp: int) -> None:
+def check_supported(tp: int) -> None:
     if tp != 1:
         raise NotImplementedError("--tp > 1 (tensor parallelism over several devices) is not ported")
-    if model_name == "facebook":
-        raise NotImplementedError("--model facebook is not ported")
 
 
 def make_spec(loss: str, miner: str, margin: float, loss_weight: float, max_triplets: int = 0):
@@ -110,7 +108,7 @@ def train_command_impl(frame_num, training, validation, resume, save_model, epoc
                        margin, loss_weight, max_triplets, early_stop, model_name="resnet50", pretrained=None,
                        device="cuda", disable=False, crop=256, bf16=False, tp=1, decode_cache=None):
     """Reference ``src/train.py:49-152``; returns the trained network."""
-    check_supported(model_name, tp)
+    check_supported(tp)
     import torch
 
     from semi_supervised_vos_tpu_torch.config import default_num_workers

@@ -23,7 +23,7 @@ from semi_supervised_vos_tpu_torch.utils.logging import logger
 @click.option("--margin", type=click.FloatRange(min=0.0, max=1.0), default=0.1, help="Triplet loss margin.")
 @click.option("--loss_weight", type=click.FloatRange(min=0.0), default=6.0, help="Weight of triplet loss.")
 @click.option("--output", "-o", type=click.Path(dir_okay=False, file_okay=True), help="Path to output JSON.")
-@click.option("--model", "model_name", type=click.Choice(["resnet18", "resnet50", "resnet101", "facebook"]),
+@click.option("--model", "model_name", type=click.Choice(["resnet18", "resnet50", "resnet101"]),
               default="resnet50", help="Backbone.")
 @click.option("--device", type=click.Choice(["cuda", "cpu"]), default="cuda", help="Device to run computing on.")
 def validation_command(data, checkpoints, bs, loss, miner, margin, loss_weight, output, model_name, device):
@@ -36,10 +36,9 @@ def validation_command(data, checkpoints, bs, loss, miner, margin, loss_weight, 
 def validation_command_impl(data, checkpoints, bs, loss, miner, margin, loss_weight, output, model_name="resnet50",
                             device="cuda", disable=False, frame_num=10, crop=256):
     """Reference ``src/validation.py:29-98``; returns {checkpoint name: loss}."""
-    from semi_supervised_vos_tpu_torch.cli.train import check_supported, make_spec
-
-    check_supported(model_name, 1)
     import torch
+
+    from semi_supervised_vos_tpu_torch.cli.train import make_spec
 
     from semi_supervised_vos_tpu_torch.config import default_num_workers
     from semi_supervised_vos_tpu_torch.data.davis import TrainDataset

@@ -125,7 +125,7 @@ class BatchedPropagationEngine(PropagationEngine):
             g = fb.shape[0]
             return self.encode(fb.reshape((g * self.b,) + fb.shape[2:])).view(g, self.b, self.p, -1)
 
-        return grouped_map(enc, frames_u8, max(1, _hbm_lanes_cap((self.h, self.w)) // self.b))
+        return grouped_map(enc, frames_u8, max(1, _hbm_lanes_cap((self.h, self.w), self.model.model) // self.b))
 
     def _propagate(self, targets: torch.Tensor, state: BankState, frame_idx: int) -> torch.Tensor:
         """(B, P, C) targets → (B, num_classes, P) float32 scores."""
@@ -226,47 +226,57 @@ BATCHABLE_STRATEGIES = tuple(_STRATEGY_LANES)
 
 
 # The card's lockstep envelope in lane-grid pixels (lanes x P), from two
-# anchors measured by ``chip_smoke.py`` phase 10d on an NVIDIA H100 80GB
-# HBM3 (power limit 700 W, 85.0 GB to PyTorch): one chunk (start + 8 steps)
-# at the cap, where an encode call takes one step of every lane, needs
-# 0.2555 GB a lane at 480p (P 6420: the 162 MB ring bank, one frame of
-# encoder activations, the chunk's frames and features) and 1.289 GB at
-# 1080p (P 32400); each budget is the lanes that fill 70 % of the card at
-# that rate, which leaves the 85 % that phase 10d checks. Between the
+# anchors measured by ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 (power
+# limit 700 W, 85.0 GB to PyTorch): one chunk (start + 8 steps) at the cap,
+# where an encode call takes one step of every lane. Each budget is the
+# lanes that filled 70 % of the card at the rate measured then, which
+# leaves room under the 85 % that phases 10d and 12d check. Between the
 # anchors the budget is interpolated in log space (a power law through
 # both; the activations and the bank grow at other rates with the frame);
 # outside them it clamps.
+#   * resnet18 / resnet50 / resnet101 (1024 channels at most), phase 10d:
+#     0.2555 GB a lane at 480p (P 6420: the 162 MB ring bank, one frame of
+#     encoder activations, the chunk's frames and features) and 1.289 GB at
+#     1080p (P 32400); 232 and 46 lanes. The float32 stem and 1x1 results
+#     of the encoder raised them to 0.2719 and 1.372 GB (0.743 of the card
+#     at the cap).
+#   * facebook (layer4 keeps 2048 channels at stride 8), phase 12d: 0.3475
+#     GB a lane at 480p and 1.754 GB at 1080p; 171 and 33 lanes.
 _HBM_ANCHOR_P_SMALL = 6420
 _HBM_ANCHOR_P_LARGE = 32400
 _HBM_LANE_PX_SMALL = 232 * _HBM_ANCHOR_P_SMALL
 _HBM_LANE_PX_LARGE = 46 * _HBM_ANCHOR_P_LARGE
+_HBM_LANE_PX_ARCH = {"facebook": (171 * _HBM_ANCHOR_P_SMALL, 33 * _HBM_ANCHOR_P_LARGE)}
 
 
-def _hbm_lanes_cap(hw: Tuple[int, int]) -> int:
-    """Most lockstep lanes per card for this frame size (see the anchors)."""
+def _hbm_lanes_cap(hw: Tuple[int, int], arch: str = "resnet50") -> int:
+    """Most lockstep lanes per card for this frame size and network (see
+    the anchors)."""
+    small, large = _HBM_LANE_PX_ARCH.get(arch, (_HBM_LANE_PX_SMALL, _HBM_LANE_PX_LARGE))
     hd, wd = out_spatial(hw[0], hw[1])
     p = hd * wd
     if p <= _HBM_ANCHOR_P_SMALL:
-        budget = _HBM_LANE_PX_SMALL
+        budget = small
     elif p >= _HBM_ANCHOR_P_LARGE:
-        budget = _HBM_LANE_PX_LARGE
+        budget = large
     else:
         frac = math.log(p / _HBM_ANCHOR_P_SMALL) / math.log(_HBM_ANCHOR_P_LARGE / _HBM_ANCHOR_P_SMALL)
-        budget = _HBM_LANE_PX_SMALL * (_HBM_LANE_PX_LARGE / _HBM_LANE_PX_SMALL) ** frac
+        budget = small * (large / small) ** frac
     return max(1, int(budget) // p)
 
 
-def _clamp_video_batch(video_batch: int, lanes: int, *hws, n_chips: int = 1) -> int:
+def _clamp_video_batch(video_batch: int, lanes: int, *hws, n_chips: int = 1, archs=("resnet50",)) -> int:
     """Videos per group such that every card's lanes stay inside the
-    envelope of every engine resolution involved: the per-card cap first
-    (each card would carry ceil(vb / n_chips) x lanes lanes), then scaled by
-    the card count; logs when it bites."""
-    governing = min(hws, key=_hbm_lanes_cap)
-    per_chip_videos = max(1, _hbm_lanes_cap(governing) // lanes)
+    envelope of every engine resolution and network involved (``archs``:
+    the networks' names; multimodel's wider one governs): the per-card cap
+    first (each card would carry ceil(vb / n_chips) x lanes lanes), then
+    scaled by the card count; logs when it bites."""
+    governing = min(((hw, arch) for hw in hws for arch in archs), key=lambda k: _hbm_lanes_cap(*k))
+    per_chip_videos = max(1, _hbm_lanes_cap(*governing) // lanes)
     vb = max(1, min(video_batch, per_chip_videos * max(n_chips, 1)))
     if vb < video_batch:
         logger.info(
-            f"video-batch {video_batch} exceeds the card's lane envelope at {governing} "
+            f"video-batch {video_batch} exceeds the card's lane envelope at {governing[0]} for {governing[1]} "
             f"({per_chip_videos} video(s) x {lanes} lanes per card over {n_chips} card(s)); running groups of {vb}."
         )
     return vb
@@ -392,7 +402,7 @@ def inference_batched(dataset, annotation_dir, save_dir, model, cfg, device, vid
         return tuple(lane_frames(dataset[per_video[video][0]][0])[0].shape[:2])
 
     for hw, chunk, lengths in _groups(per_video, resolution,
-                                      lambda hw: _clamp_video_batch(video_batch, lanes, hw)):
+                                      lambda hw: _clamp_video_batch(video_batch, lanes, hw, archs=(model.model,))):
         labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
         engine = BatchedPropagationEngine(model, hw, len(chunk) * lanes, _with_budget(cfg, d_max), device, fusion)
         state = None
@@ -446,9 +456,10 @@ def inference_multimodel_batched(dataset, annotation_dir, save_dir, model, addit
     def resolution(video):
         return tuple(dataset[per_video[video][0]][0].shape[:2])
 
-    # two engines share the card: two lanes a video
+    # two engines share the card: two lanes a video, under the wider network's envelope
+    archs = (model.model, additional_model.model)
     for hw, chunk, lengths in _groups(per_video, resolution,
-                                      lambda hw: _clamp_video_batch(video_batch, 2, hw)):
+                                      lambda hw: _clamp_video_batch(video_batch, 2, hw, archs=archs)):
         labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
         gcfg = _with_budget(cfg, d_max)
         e1 = BatchedPropagationEngine(model, hw, len(chunk), gcfg, device)
@@ -493,8 +504,8 @@ def inference_2_scale_batched(dataset, annotation_dir, save_dir, model, cfg, dev
         return tuple(item[0].shape[:2]), tuple(item[1].shape[:2])
 
     # two per-resolution engines share the card: two lanes a video
-    for (hw1, hw2), chunk, lengths in _groups(per_video, resolutions,
-                                              lambda hws: _clamp_video_batch(video_batch, 2, *hws)):
+    clamp = lambda hws: _clamp_video_batch(video_batch, 2, *hws, archs=(model.model,))  # noqa: E731
+    for (hw1, hw2), chunk, lengths in _groups(per_video, resolutions, clamp):
         labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
         gcfg = _with_budget(cfg, d_max)
         b = len(chunk)
@@ -571,7 +582,7 @@ def inference_3_scale_batched(dataset, annotation_dir, save_dir, model, cfg, dev
             return int(np.ceil(h * sc)), int(np.ceil(w * sc))
 
         for hw, chunk, lengths in _groups(per_video, resolution,
-                                          lambda hw: _clamp_video_batch(video_batch, 1, hw)):
+                                          lambda hw: _clamp_video_batch(video_batch, 1, hw, archs=(model.model,))):
             labels, pals, d_max = _first_labels(chunk, annotation_dir, save_dir, copy=pass_idx == 0)
             palettes.update(pals)
             engine = BatchedPropagationEngine(model, hw, len(chunk), _with_budget(cfg, d_max), device)

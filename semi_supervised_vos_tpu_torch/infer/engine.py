@@ -23,6 +23,11 @@ Two paths, as in the JAX engine:
     the bank-direct affinity kernel, bf16 features and labels;
   * on the CPU: the unfolded module forward, the dense golden
     ``affinity_propagate`` and float32 — the JAX engine's CPU path.
+
+The engine sets no global state: its one float32 convolution on the card,
+the encoder's stem, runs in a scope that restores both of PyTorch's TF32
+flags (``models/infer_fast.py``), so building or stepping an engine leaves
+them as the caller set them.
 """
 
 from __future__ import annotations
@@ -103,10 +108,6 @@ class PropagationEngine:
         if self.on_card:
             from semi_supervised_vos_tpu_torch.models.fold import fold_vosnet
 
-            # stated explicitly: any float32 conv or matmul here runs in full
-            # float32 (the encoder itself runs in bf16)
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
             self.dtype = torch.bfloat16
             self.label_dtype = torch.bfloat16
             self.d_pad = -(-cfg.num_classes // 8) * 8

@@ -9,6 +9,9 @@
   torchvision ImageNet ResNet checkpoint, dropping ``layer4.*`` and ``fc.*``
   as the reference does (``resnet.py:194-199``: layer4's shapes differ in
   the VOS topology, so it keeps its fresh initialisation, as the head does).
+  ``facebook`` keeps layer4, whose shapes are torchvision's, and drops only
+  ``fc.*``, as the reference loads the whole swsl checkpoint
+  (``vos_net.py:29-38``).
 * :func:`state_dict_from_jax` carries weights across from the JAX package:
   flax variables (as numpy) → this module's state dict. It inverts the JAX
   package's ``convert_vosnet_state_dict``: HWIO kernels become OIHW, and BN
@@ -63,15 +66,17 @@ def save_torch_checkpoint(net: torch.nn.Module, path) -> None:
 
 def load_torchvision_backbone(net: torch.nn.Module, state_dict: Mapping) -> torch.nn.Module:
     """Copy a torchvision ResNet state dict (``conv1``, ``bn1``,
-    ``layer1..3``) into ``net.backbone`` (``backbone.0``, ``backbone.1``,
-    ``backbone.4..6``); ``layer4.*`` and ``fc.*`` are dropped. Every kept key
-    must exist in ``net`` with the same shape."""
+    ``layer1..3``, and ``layer4`` for facebook) into ``net.backbone``
+    (``backbone.0``, ``backbone.1``, ``backbone.4..7``); ``fc.*`` and, but
+    for facebook, ``layer4.*`` are dropped. Every kept key must exist in
+    ``net`` with the same shape."""
     target = net.state_dict()
-    seq = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5", "layer3": "6"}
+    seq = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5", "layer3": "6", "layer4": "7"}
+    dropped = ("fc",) if getattr(net, "model", None) == "facebook" else ("fc", "layer4")
     merged = {}
     for key, value in strip_module_prefix(state_dict).items():
         head, rest = key.split(".", 1)
-        if head in ("fc", "layer4"):
+        if head in dropped:
             continue
         ours = f"backbone.{seq[head]}.{rest}"
         if ours not in target or target[ours].shape != value.shape:
@@ -96,7 +101,7 @@ def _jax_module_path(module_key: str) -> Tuple[str, ...]:
     (``backbone/layer2_0/downsample_bn``)."""
     parts = module_key.split(".")
     if parts[0] != "backbone":
-        return tuple(parts)  # adjust_dim, bn256
+        return ("_".join(parts),)  # adjust_dim, facebook's adjust_dim.0 / .1 (adjust_dim_0 / _1), bn256
     if parts[1] == "0":
         return ("backbone", "conv1")
     if parts[1] == "1":

@@ -32,23 +32,26 @@ def fold_conv_bn(weight: torch.Tensor, bn: nn.BatchNorm2d, eps: float = BN_EPS) 
 def fold_vosnet(net: VOSNet, dtype=torch.bfloat16) -> Dict[str, object]:
     """Fold every conv+BN pair of ``net`` (on its device).
 
-    Returns a flat dict: ``stem/{kernel,bias}``,
+    Returns a flat dict: ``stem/{kernel,bias}`` (float32: ``fast_encode``
+    runs the stem in float32),
     ``layer<S>_<B>/{conv1,conv2[,conv3],downsample}/{kernel,bias}`` (OIHW
     kernels in ``dtype``, float32 biases), ``head/{kernel,bias}`` (absent for
-    resnet18), and for every bottleneck block without a downsample branch
+    resnet18; for facebook ``adjust_dim.1`` folded with ``bn256``, after
+    ``head0/{kernel,bias}``, the bare 2048 → 1024 ``adjust_dim.0`` with a
+    zero bias), and for every bottleneck block without a downsample branch
     ``layer<S>_<B>/fused``: the fused kernel's operands (w1 (C, C4), b1,
     w2 (3, 3, C4, C4) HWIO, b2, w3 (C4, C), b3), prepared once here.
     """
     seq = net.backbone
     out: Dict[str, object] = {}
 
-    def put(name, weight, bn):
+    def put(name, weight, bn, kernel_dtype=dtype):
         k, b = fold_conv_bn(weight, bn)
-        out[f"{name}/kernel"] = k.to(dtype).contiguous(memory_format=torch.channels_last)
+        out[f"{name}/kernel"] = k.to(kernel_dtype).contiguous(memory_format=torch.channels_last)
         out[f"{name}/bias"] = b
         return k, b
 
-    put("stem", seq[0].weight, seq[1])
+    put("stem", seq[0].weight, seq[1], torch.float32)
     for stage in range(1, 5):
         for b, blk in enumerate(seq[stage + 3]):
             name = f"layer{stage}_{b}"
@@ -65,6 +68,11 @@ def fold_vosnet(net: VOSNet, dtype=torch.bfloat16) -> Dict[str, object]:
                     k2.permute(2, 3, 1, 0).to(dtype).contiguous(), b2,
                     k3[:, :, 0, 0].t().to(dtype).contiguous(), b3,
                 )
-    if net.model != "resnet18":
+    if net.model == "facebook":
+        k0 = net.adjust_dim[0].weight.detach().float()
+        out["head0/kernel"] = k0.to(dtype).contiguous(memory_format=torch.channels_last)
+        out["head0/bias"] = torch.zeros(k0.shape[0], dtype=torch.float32, device=k0.device)
+        put("head", net.adjust_dim[1].weight, net.bn256)
+    elif net.model != "resnet18":
         put("head", net.adjust_dim.weight, net.bn256)
     return out

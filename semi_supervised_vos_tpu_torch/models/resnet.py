@@ -6,7 +6,12 @@ Topology (reference ``src/model/backbone/resnet.py``):
   * stage strides (1, 2, 1, 1) → overall stride 8;
   * layer4 is built with ``planes=256``, so a bottleneck backbone ends at
     1024 channels and layer4's first block has no downsample branch
-    (``inplanes == planes * 4`` and stride 1).
+    (``inplanes == planes * 4`` and stride 1);
+  * ``facebook`` (reference ``vos_net.py:29-38``, the torchvision-shaped
+    resnet50 of the swsl weights, its strides patched to the same stride 8)
+    keeps torchvision's widths (64, 128, 256, 512): it ends at 2048
+    channels, and layer4's first block widens 1024 → 2048 through a
+    downsample branch.
 
 Layout is NCHW, the reference's.
 
@@ -24,12 +29,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-STAGE_PLANES = (64, 128, 256, 256)
 STAGE_STRIDES = (1, 2, 1, 1)
 ARCH_LAYERS = {
     "resnet18": (2, 2, 2, 2),
     "resnet50": (3, 4, 6, 3),
     "resnet101": (3, 4, 23, 3),
+    "facebook": (3, 4, 6, 3),
+}
+# stage widths of each arch (the JAX package's ``ARCH_PLANES``)
+ARCH_PLANES = {
+    "resnet18": (64, 128, 256, 256),
+    "resnet50": (64, 128, 256, 256),
+    "resnet101": (64, 128, 256, 256),
+    "facebook": (64, 128, 256, 512),
 }
 
 
@@ -118,7 +130,7 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """conv1..layer4 of the VOS ResNet (the reference keeps children [0:8])."""
 
-    def __init__(self, block: str, layers: Sequence[int]):
+    def __init__(self, block: str, layers: Sequence[int], stage_planes: Sequence[int]):
         super().__init__()
         block_cls = BasicBlock if block == "basic" else Bottleneck
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
@@ -127,7 +139,7 @@ class ResNet(nn.Module):
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes = 64
         for stage, (planes, blocks, stride) in enumerate(
-            zip(STAGE_PLANES, layers, STAGE_STRIDES), start=1
+            zip(stage_planes, layers, STAGE_STRIDES), start=1
         ):
             mods = []
             for b in range(blocks):
@@ -145,11 +157,12 @@ class ResNet(nn.Module):
 
 
 def resnet(model: str) -> ResNet:
-    """resnet18 (basic blocks) or resnet50 / resnet101 (bottlenecks)."""
+    """resnet18 (basic blocks) or resnet50 / resnet101 / facebook
+    (bottlenecks)."""
     if model not in ARCH_LAYERS:
-        raise NotImplementedError(f"model {model!r} is not ported")
+        raise NotImplementedError(f"unknown model {model!r}")
     block = "basic" if model == "resnet18" else "bottleneck"
-    return ResNet(block, ARCH_LAYERS[model])
+    return ResNet(block, ARCH_LAYERS[model], ARCH_PLANES[model])
 
 
 def out_spatial(h: int, w: int) -> Tuple[int, int]:

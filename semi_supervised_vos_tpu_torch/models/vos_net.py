@@ -4,12 +4,15 @@
   * ``resnet18``: the bare truncated backbone (it already ends at 256
     channels);
   * ``resnet50`` / ``resnet101``: backbone (1024 channels) → 1x1 conv
-    ``adjust_dim`` to 256 → BatchNorm ``bn256``.
+    ``adjust_dim`` to 256 → BatchNorm ``bn256``;
+  * ``facebook``: the torchvision-shaped resnet50 (2048 channels) → the
+    two 1x1 convs of ``adjust_dim`` (2048 → 1024 → 256, with no BN and no
+    ReLU between them) → BatchNorm ``bn256``.
 
 ``backbone`` is an ``nn.Sequential`` of the ResNet's first eight children,
 so the state-dict keys are the reference's: ``backbone.0`` (conv1),
-``backbone.1`` (bn1), ``backbone.4..7`` (layer1..4), ``adjust_dim``,
-``bn256``. The ``facebook`` variant is not ported.
+``backbone.1`` (bn1), ``backbone.4..7`` (layer1..4), ``adjust_dim``
+(``adjust_dim.0`` / ``adjust_dim.1`` for facebook), ``bn256``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from torch import nn
 
 from semi_supervised_vos_tpu_torch.models.resnet import BatchNorm2d, resnet
 
-MODEL_NAMES = ("resnet18", "resnet50", "resnet101")
+MODEL_NAMES = ("resnet18", "resnet50", "resnet101", "facebook")
 
 
 class VOSNet(nn.Module):
@@ -32,8 +35,11 @@ class VOSNet(nn.Module):
             raise NotImplementedError(f"model {model!r} is not ported; one of {MODEL_NAMES}")
         self.model = model
         self.backbone = nn.Sequential(*resnet(model).children_for_vos())
-        if model != "resnet18":
+        if model == "facebook":
+            self.adjust_dim = nn.Sequential(nn.Conv2d(2048, 1024, 1, bias=False), nn.Conv2d(1024, 256, 1, bias=False))
+        elif model != "resnet18":
             self.adjust_dim = nn.Conv2d(1024, 256, 1, bias=False)
+        if model != "resnet18":
             self.bn256 = BatchNorm2d(256)
 
     def forward(self, x):

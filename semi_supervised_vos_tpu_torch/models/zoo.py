@@ -6,7 +6,8 @@ at construction (``src/model/backbone/resnet.py:13-19,159-171``). Here, when
 ``--pretrained`` is not given, :func:`auto_pretrained_path` looks in the
 cache first, then tries the zoo URL; offline it returns ``None`` and training
 starts from random initialisation. ``SVOS_ZOO=0`` turns the lookup off (the
-tests and ``chip_smoke.py`` set it). The ``layer4.*`` / ``fc.*`` drop is in
+tests and ``chip_smoke.py`` set it). The ``layer4.*`` / ``fc.*`` drop
+(``fc.*`` only for facebook) is in
 :func:`semi_supervised_vos_tpu_torch.models.convert.load_torchvision_backbone`.
 """
 
@@ -18,11 +19,15 @@ from typing import Optional
 
 from semi_supervised_vos_tpu_torch.utils.logging import logger
 
-# torchvision model-zoo URLs, as in the reference (resnet.py:13-19)
+# torchvision model-zoo URLs, as in the reference (resnet.py:13-19); the
+# facebook variant's swsl resnet50, which the reference takes from
+# torch.hub (vos_net.py:29-38), at the direct URL the hub entry resolves to
 MODEL_ZOO_URLS = {
     "resnet18": "https://download.pytorch.org/models/resnet18-5c106cde.pth",
     "resnet50": "https://download.pytorch.org/models/resnet50-19c8e357.pth",
     "resnet101": "https://download.pytorch.org/models/resnet101-5d3b4d8f.pth",
+    "facebook": "https://dl.fbaipublicfiles.com/semiweaksupervision/"
+    "model_files/semi_weakly_supervised_resnet50-16a12f1b.pth",
 }
 
 

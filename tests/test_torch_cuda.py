@@ -341,3 +341,81 @@ def test_pipelined_skeleton_step_matches_host_path(card, nprng, monkeypatch):
     host, _, _ = _train_step(card, "resnet18", spec, imgs, anns)
     assert np.isfinite(pipelined)
     np.testing.assert_allclose(pipelined, host, rtol=1e-5)
+
+
+def _facebook_net(card, clips):
+    """A random facebook VOSNet whose BN statistics are estimated on
+    ``clips`` and whose residual branches are scaled down (chip_smoke.py's
+    recipe), on the card."""
+    from semi_supervised_vos_tpu_torch.infer.engine import IMAGENET_MEAN, IMAGENET_STD
+    from semi_supervised_vos_tpu_torch.models.resnet import Bottleneck, init_weights
+    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
+
+    net = VOSNet("facebook")
+    init_weights(net, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.reset_running_stats()
+                m.momentum = None
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.mul_(0.1)
+        x = torch.as_tensor(clips.reshape((-1,) + clips.shape[-3:]), device=card).float() / 255.0
+        x = (x - torch.as_tensor(IMAGENET_MEAN, device=card)) / torch.as_tensor(IMAGENET_STD, device=card)
+        net.to(card).train()(x.permute(0, 3, 1, 2))
+    return net.eval()
+
+
+def test_facebook_encoder_on_card(card, nprng, monkeypatch):
+    """facebook's BN-folded bf16 encoder: 8 fused-bottleneck launches
+    (layer2_1..3, layer3_1..5; the 2048-wide layer4 runs on cuDNN) and the
+    encoder gate, min per-pixel cosine >= 0.9999 against the float32 module,
+    with the JAX package's recipe (reference initialisation, perturbed BN
+    running statistics)."""
+    from semi_supervised_vos_tpu_torch.models.fold import fold_vosnet
+    from semi_supervised_vos_tpu_torch.models.infer_fast import fast_encode
+    from semi_supervised_vos_tpu_torch.models.resnet import init_weights
+    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # the float32 reference
+    net = VOSNet("facebook").eval()
+    g = torch.Generator().manual_seed(0)
+    init_weights(net, g)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+                m.running_var.normal_(0.0, 1.0, generator=g).abs_().mul_(0.5).add_(0.5)
+    net.to(card)
+    x = torch.as_tensor(nprng.standard_normal((2, 128, 224, 3)), dtype=torch.float32, device=card)
+    before = tb.bottleneck_block.launches
+    with torch.no_grad():
+        fast = fast_encode(fold_vosnet(net, torch.bfloat16), x, torch.bfloat16, arch="facebook").float()
+        torch.cuda.synchronize()
+        ref = net(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert tb.bottleneck_block.launches == before + 8
+    assert fast.shape == ref.shape == (2, 16, 28, 256)
+    cos = torch.nn.functional.cosine_similarity(fast.reshape(-1, 256), ref.reshape(-1, 256), dim=-1)
+    assert cos.min().item() >= 0.9999
+
+
+@pytest.mark.parametrize("flags", [(True, True), (False, False), (True, False)])
+def test_engines_leave_tf32_flags_alone(card, nprng, flags):
+    """Building a single and a lockstep engine on the card and running one
+    step of each leaves both TF32 flags as the caller set them."""
+    from semi_supervised_vos_tpu_torch.infer.batched import BatchedPropagationEngine
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
+
+    clips, labels = _moving_squares(nprng, 2, 2, 64, 112)
+    net = _facebook_net(card, clips)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        engine = PropagationEngine(net, (64, 112), EngineConfig(), card)
+        engine.step_chunk_small(clips[1:, 0], engine.start_video(clips[0, 0], labels[0]), 1)
+        lockstep = BatchedPropagationEngine(net, (64, 112), 2, EngineConfig(), card)
+        lockstep.step_chunk_small(clips[1:], lockstep.start_videos(clips[0], labels), 1)
+        torch.cuda.synchronize()
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -64,7 +64,7 @@ def tree(tmp_path_factory):
 
 
 def assert_cli_matches_jax(tree, tmp_path, monkeypatch, strategy, probability=False, fusion="mean", ref_num=9,
-                           video_batch=1):
+                           video_batch=1, model="resnet18", additional_model_type="resnet18"):
     """Run the JAX CLI and the port's CLI on the CPU with the same options
     (chunks of 3 frames, so a video spans a full and a padded chunk) and
     require byte-identical PNGs whose predictions carry both objects."""
@@ -74,15 +74,15 @@ def assert_cli_matches_jax(tree, tmp_path, monkeypatch, strategy, probability=Fa
     monkeypatch.setenv("SVOS_CHUNK", "3")
     jax_out, port_out = tmp_path / "jax", tmp_path / "port"
     inference_command_impl(
-        ref_num=ref_num, data=str(root), resume=str(ckpt), model="resnet18", temperature=1.0, frame_range=40,
+        ref_num=ref_num, data=str(root), resume=str(ckpt), model=model, temperature=1.0, frame_range=40,
         sigma_1=8.0, sigma_2=21.0, save=str(jax_out), device="cpu", inference_strategy=strategy,
-        additional_resume=str(ckpt2), additional_model_type="resnet18", probability_propagation=probability,
+        additional_resume=str(ckpt2), additional_model_type=additional_model_type, probability_propagation=probability,
         scale=1.15, reduction=fusion, disable=True, video_batch=video_batch,
     )
     args = [
-        "inference", "-d", str(root), "-r", str(ckpt), "-m", "resnet18", "-s", str(port_out), "--device", "cpu",
+        "inference", "-d", str(root), "-r", str(ckpt), "-m", model, "-s", str(port_out), "--device", "cpu",
         "-n", str(ref_num), "--inference-strategy", strategy, "--additional-model", str(ckpt2),
-        "--additional-model-type", "resnet18", "--fusion", fusion, "--video-batch", str(video_batch),
+        "--additional-model-type", additional_model_type, "--fusion", fusion, "--video-batch", str(video_batch),
     ] + (["--probability"] if probability else [])
     res = CliRunner().invoke(cli, args)
     assert res.exit_code == 0, res.output

@@ -146,13 +146,27 @@ def test_validation_refuses_orbax_checkpoints(trained, tmp_path):
     assert "Orbax" in res.output and "pth.tar" in res.output
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--model", "facebook"]])
+@pytest.mark.parametrize("flags", [["--tp", "2"], ["--model", "facebook", "--tp", "2"]])
 def test_unported_train_options_raise(trained, tmp_path, flags):
+    """Only ``--tp`` > 1 is refused (facebook trains)."""
     root, _ = trained
     res = CliRunner().invoke(cli, ["train", "-t", str(root / "davis"), "-v", str(root / "davis"),
                                    "-m", str(tmp_path / "ck"), "--device", "cpu", *flags])
     assert res.exit_code != 0
-    assert "not ported" in res.output
+    assert "--tp > 1 (tensor parallelism over several devices) is not ported" in res.output
+
+
+def test_validation_refuses_facebook_like_jax(trained):
+    """The JAX validation CLI offers resnet18, resnet50 and resnet101 only:
+    ``--model facebook`` is a usage error in both."""
+    from semi_supervised_vos_tpu.cli.validation import validation_command as jax_validation_command
+
+    root, _ = trained
+    args = ["-d", str(root / "davis"), "-c", str(root / "port"), "--model", "facebook", "--device", "cpu"]
+    port = CliRunner().invoke(cli, ["validation", *args])
+    ref = CliRunner().invoke(jax_validation_command, args)
+    assert port.exit_code == ref.exit_code == 2  # click's usage error
+    assert "Invalid value for '--model'" in port.output and "Invalid value for '--model'" in ref.output
 
 
 def test_missing_card_is_an_error_for_train_and_validation(trained, tmp_path):
