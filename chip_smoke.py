@@ -67,13 +67,25 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
      tree, device ms per frame, card vs CPU masks on the small clip; (c)
      ``multimodel`` with facebook as the second network; (d) one lockstep
      chunk at facebook's lane cap at 480p and 1080p under 85 % of the card;
-     (e) one cross-entropy train step at bs 16 x 10 frames x 256^2.
+     (e) one cross-entropy train step at bs 16 x 10 frames x 256^2;
+ 13. multi-device inference on a virtual mesh that names the one card n
+     times (``parallel/mesh.py::make_mesh(devices=[cuda:0] * n)``): (a) the
+     bank kernel in stats mode on 2, 4 and 8 row shards (the last ragged or
+     padded past P), combined by ``distributed_softmax_combine``, against
+     the unsharded kernel at 480p, B = 1 and 8, both timed; (b)
+     ``ShardedPropagationEngine`` with 4 bank shards against the single
+     engine on the main path's videos: n launches per frame, masks, device
+     ms per frame of both; (c) the lockstep runner over a dp 2 x bank 2 mesh
+     at ``--video-batch`` 3 (a padded video per group of 3) against the
+     one-card lockstep CLI; (d) ``--bank-shards 1 --dp-shards 1`` through
+     the CLI, and ``--bank-shards 2``: refused on one card with the JAX
+     CLI's message, run and held to the one-card J&F on two or more.
 
 Times are medians of 20 CUDA-event timings, printed with their p10-p90
 spread. The line before the last is the card's name and power limit as
 nvidia-smi reports them, the one before that a JSON summary of every
 kernel, and before that JSON lines for the strategies, the lockstep phase,
-training and facebook.
+training, facebook and the mesh phase.
 """
 
 from __future__ import annotations
@@ -1593,6 +1605,224 @@ def facebook_phase(torch, dev, work: Path, videos: dict):
     return res
 
 
+
+# ---- phase 13: multi-device inference on a virtual one-card mesh -----------
+
+
+def virtual_mesh(torch, dev, n_data: int, n_model: int):
+    """A mesh that names the one card ``n_data x n_model`` times: every shard
+    runs, with its row offsets and the combine, on the same card."""
+    from semi_supervised_vos_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_data, n_model, devices=[dev] * (n_data * n_model))
+
+
+def sharded_kernels(torch, dev, rng):
+    """13a: the bank kernel in stats mode on n row shards (row_base s x
+    P_loc, the last one padded to P_loc past P where n does not divide P),
+    combined by ``distributed_softmax_combine`` (the combine kernel), against
+    the unsharded kernel at 480p (K 9, P 6420, C 256), B = 1 and 8; both
+    timed, the n launches and the combine together."""
+    from semi_supervised_vos_tpu_torch.core.sampling import sample_frames
+    from semi_supervised_vos_tpu_torch.models.resnet import out_spatial
+    from semi_supervised_vos_tpu_torch.ops import affinity as aff
+    from semi_supervised_vos_tpu_torch.parallel.sharded_affinity import distributed_softmax_combine
+
+    c, d, d_pad, cap, k = 256, 22, 24, 45, 9
+    hd, wd = out_spatial(H480, W480)
+    p = hd * wd
+    idx, valid, dense = sample_frames(50, 40, k)
+    slots = idx % cap
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    res = {}
+    for b, shard_counts in ((1, (2, 4, 8)), (8, (2, 4))):
+        feats = (torch.randn((cap, b, p, c), generator=gen, device=dev) * 0.2).to(torch.bfloat16)
+        labels = torch.nn.functional.one_hot(torch.randint(0, d, (cap, b, p), generator=gen, device=dev), d_pad)
+        labels = labels.to(torch.bfloat16)
+        tgt = (torch.randn((b, p, c), generator=gen, device=dev) * 0.2).to(torch.bfloat16).float()
+        run_whole = lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw)  # noqa: E731
+        whole = run_whole()[:, :d]
+        whole_ms = time_ms(run_whole)
+        for n in shard_counts:
+            p_loc = -(-p // n)
+            pad = torch.nn.functional.pad
+            shards = [(pad(feats[:, :, s * p_loc : (s + 1) * p_loc], (0, 0, 0, p_loc - min(p_loc, p - s * p_loc)))
+                       .contiguous(),
+                       pad(labels[:, :, s * p_loc : (s + 1) * p_loc], (0, 0, 0, p_loc - min(p_loc, p - s * p_loc)))
+                       .contiguous()) for s in range(n)]
+
+            def run_sharded():
+                stats = [aff.affinity_from_bank_batched(f, lab, tgt, slots, row_base=s * p_loc, return_stats=True,
+                                                        **kw) for s, (f, lab) in enumerate(shards)]
+                return distributed_softmax_combine(*zip(*stats))
+
+            got = run_sharded()[:, :d]
+            max_abs = (got - whole).abs().max().item()
+            agree = (got.argmax(1) == whole.argmax(1)).double().mean().item()
+            ms = time_ms(run_sharded)
+            log(f"13a B={b} {n} shards of {p_loc} rows (last {p - (n - 1) * p_loc} real): max_abs vs the unsharded "
+                f"kernel {max_abs:.3e}, argmax agreement {agree}; {n} launches + combine {ms:.4f} ms, unsharded "
+                f"{whole_ms:.4f} ms")
+            check(max_abs <= STATS_GATE and agree == 1.0,
+                  f"B={b}, {n} stats shards combined vs the unsharded kernel <= {STATS_GATE} / 1.0")
+            res[f"b{b}_shards{n}"] = dict(max_abs_err=max_abs, argmax_agreement=agree, ms=ms, unsharded_ms=whole_ms)
+        del feats, labels, tgt, shards
+    return res
+
+
+def run_engine(torch, engine, frames, label):
+    """One video through an engine's chunk path: (N - 1, hd, wd) masks."""
+    from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
+
+    state = engine.start_video(frames[0], label)
+    chunk = chunk_len()
+    out = []
+    for s in range(1, len(frames), chunk):
+        masks, state = engine.step_chunk_small(frames[s : s + chunk], state, s)
+        out.append(masks)
+    return torch.cat(out).cpu().numpy()
+
+
+def sharded_engine(torch, dev, net, work: Path, videos: dict, n: int = 4):
+    """13b: ``ShardedPropagationEngine`` with n bank shards against the
+    single engine on the main path's videos: launches (n per propagated
+    frame), mask agreement, and device ms per frame of both on the long
+    video, timed in turns (single, sharded, sharded, single), second runs."""
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
+    from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
+    from semi_supervised_vos_tpu_torch.parallel.engine_sharded import ShardedPropagationEngine
+
+    cfg = EngineConfig()
+    single = PropagationEngine(net, (H480, W480), cfg, dev)
+    sharded = ShardedPropagationEngine(net, (H480, W480), cfg, virtual_mesh(torch, dev, 1, n))
+    clips = {v: load_video(work, "davis", v, t) for v, t in videos.items()}
+    reset_kernel_launches()
+    got = {v: run_engine(torch, sharded, *clips[v]) for v in videos}
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    same = total = 0
+    for v in videos:
+        expect = run_engine(torch, single, *clips[v])
+        same += int((got[v] == expect).sum())
+        total += expect.size
+    agree = same / total
+    propagated = sum(videos.values()) - len(videos)
+    encodes = sum(1 + math.ceil((t - 1) / chunk_len()) for t in videos.values())
+    log(f"13b sharded engine, {n} bank shards of {sharded.p_loc} rows: launches {launches}, mask agreement with the "
+        f"single engine {agree:.7f}")
+    check(launches == {"affinity_bank": n * propagated, "affinity_propagate": 0, "bottleneck": 11 * encodes},
+          f"{n} bank-kernel launches per propagated frame ({n} x {propagated}), 11 bottleneck launches per encode")
+    check(agree >= 0.995, "sharded engine masks agree with the single engine on >= 99.5% of pixels")
+    frames, label = clips["long"]
+    times = {}
+    for name, engine in (("single", single), ("sharded", sharded), ("sharded", sharded), ("single", single)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        run_engine(torch, engine, frames, label)
+        end.record()
+        end.synchronize()
+        times.setdefault(name, []).append(start.elapsed_time(end) / len(frames))
+    ms = {name: t[1] for name, t in times.items()}
+    log(f"13b on decoded frames, {len(frames)} frames: single engine {ms['single']:.4f} ms/frame, {n}-shard engine "
+        f"{ms['sharded']:.4f} ms/frame ({ms['sharded'] / ms['single']:.3f}x; turns single, sharded, sharded, "
+        f"single: " + ", ".join(f"{t:.4f}" for t in times["single"][:1] + times["sharded"] + times["single"][1:])
+        + ")")
+    return dict(shards=n, p_loc=sharded.p_loc, launches=launches, agreement=agree,
+                single_ms_per_frame=ms["single"], sharded_ms_per_frame=ms["sharded"])
+
+
+def mesh_lockstep(torch, dev, work: Path, videos: dict, n_data: int = 2, n_bank: int = 2, video_batch: int = 3):
+    """13c: the lockstep runner (``infer/batched.py::inference_batched``)
+    over a dp ``n_data`` x bank ``n_bank`` mesh at ``video_batch`` videos a
+    group (groups of 3 pad to 4 videos over the two data rows), against
+    ``--video-batch`` of the one-card engine through the CLI."""
+    from semi_supervised_vos_tpu_torch.data.davis import InferenceDataset
+    from semi_supervised_vos_tpu_torch.infer import batched
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig
+    from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
+    from semi_supervised_vos_tpu_torch.models.convert import load_torch_checkpoint
+    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
+
+    tree, ckpt = work / "lockstep", work / "resnet50.pth.tar"
+    save_one = work / "mesh_vb_one_card"
+    cli_run(torch, ["inference", "-d", str(tree), "-r", str(ckpt), "-s", str(save_one), "--video-batch",
+                    str(video_batch)])
+    net = load_torch_checkpoint(ckpt, VOSNet("resnet50"))
+    dataset = InferenceDataset(str(tree / "JPEGImages" / "480p"), inference_strategy="single")
+    save = work / "mesh_vb"
+    mesh = virtual_mesh(torch, dev, n_data, n_bank)
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    batched.inference_batched(dataset, tree / "Annotations" / "480p", save, net, EngineConfig(), dev, video_batch,
+                              mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    names = sorted(videos)
+    groups = [names[i : i + video_batch] for i in range(0, len(names), video_batch)]
+    chunk = chunk_len()
+    bank = bottleneck = 0
+    for g in groups:
+        t_max = max(videos[v] for v in g)
+        steps = math.ceil((t_max - 1) / chunk) * chunk
+        per_row = -(-len(g) // n_data)
+        calls_per_chunk = math.ceil(chunk / max(1, batched._hbm_lanes_cap((H480, W480)) // per_row))
+        bank += steps * n_data * n_bank
+        bottleneck += 11 * n_data * (1 + math.ceil((t_max - 1) / chunk) * calls_per_chunk)
+    agree = png_agreement(save, save_one, videos, "mesh lockstep")
+    log(f"13c lockstep over dp {n_data} x bank {n_bank} (virtual mesh), --video-batch {video_batch} on "
+        f"{len(videos)} videos ({len(groups)} groups): {wall:.3f} s, launches {launches}, mask agreement with the "
+        f"one-card --video-batch {video_batch} {agree:.7f}")
+    check(launches == {"affinity_bank": bank, "affinity_propagate": 0, "bottleneck": bottleneck},
+          f"mesh lockstep: {n_data * n_bank} bank-kernel launches per step ({bank}), {bottleneck} bottleneck launches")
+    check(agree >= 0.995, "mesh lockstep masks agree with the one-card lockstep engine on >= 99.5% of pixels")
+    return dict(launches=launches, agreement=agree, seconds=wall, groups=len(groups))
+
+
+def mesh_cli(torch, work: Path):
+    """13d: the CLI's shard options. ``--bank-shards 1 --dp-shards 1`` runs;
+    on one card ``--bank-shards 2`` exits with the JAX CLI's message; on two
+    or more it runs and its J&F matches the one-card run's."""
+    import click
+
+    tree, ckpt = work / "strategies", work / "resnet50.pth.tar"
+    gt = tree / "Annotations" / "480p"
+    base = ["inference", "-d", str(tree), "-r", str(ckpt)]
+    wall, launches = cli_run(torch, base + ["-s", str(work / "mesh_cli_1"), "--bank-shards", "1", "--dp-shards", "1"])
+    jf1 = check_outputs(work / "mesh_cli_1", gt, {"clip": STRATEGY_FRAMES}, "--bank-shards 1 --dp-shards 1")
+    check(launches["affinity_bank"] == STRATEGY_FRAMES - 1, "--bank-shards 1: one bank-kernel launch per frame")
+    res = dict(cards=torch.cuda.device_count(), jf_one_card=jf1)
+    if torch.cuda.device_count() < 2:
+        try:
+            cli_run(torch, base + ["-s", str(work / "mesh_cli_2"), "--bank-shards", "2"])
+        except click.ClickException as err:
+            message = err.format_message()
+        else:
+            message = None
+        expect = "--dp-shards 1 x --bank-shards 2 exceeds the 1 available device(s)."
+        log(f"13d one card: --bank-shards 1 --dp-shards 1 ran (J&F {jf1:.6f}); --bank-shards 2 refused: {message!r}")
+        check(message == expect, f"--bank-shards 2 on one card exits with {expect!r}")
+        res["case"] = "one card: --bank-shards 2 refused"
+        return res
+    wall2, launches2 = cli_run(torch, base + ["-s", str(work / "mesh_cli_2"), "--bank-shards", "2"])
+    jf2 = check_outputs(work / "mesh_cli_2", gt, {"clip": STRATEGY_FRAMES}, "--bank-shards 2")
+    agree = png_agreement(work / "mesh_cli_2", work / "mesh_cli_1", {"clip": STRATEGY_FRAMES}, "--bank-shards 2")
+    log(f"13d {torch.cuda.device_count()} cards: --bank-shards 2 {wall2:.3f} s, launches {launches2}, J&F {jf2:.6f} "
+        f"(one card {jf1:.6f}), mask agreement {agree:.7f}")
+    check(launches2["affinity_bank"] == 2 * (STRATEGY_FRAMES - 1), "--bank-shards 2: two launches per frame")
+    check(agree >= 0.995 and abs(jf2 - jf1) <= 0.005, "--bank-shards 2 on two cards: masks and J&F match one card's")
+    res.update(case="several cards: --bank-shards 2 ran", jf_two_cards=jf2, agreement=agree, launches=launches2)
+    return res
+
+
+def mesh_phase(torch, dev, rng, work: Path, net, videos: dict, lockstep_videos: dict):
+    """Phase 13: multi-device inference on a virtual one-card mesh."""
+    return {"kernels": sharded_kernels(torch, dev, rng), "engine": sharded_engine(torch, dev, net, work, videos),
+            "lockstep": mesh_lockstep(torch, dev, work, lockstep_videos), "cli": mesh_cli(torch, work)}
+
+
 def main() -> int:
     if not (ROOT / "semi_supervised_vos_tpu_torch" / "__init__.py").is_file():
         log("FAILED: the semi_supervised_vos_tpu_torch package is not beside this script")
@@ -1666,6 +1896,8 @@ def main() -> int:
         training = training_phase(torch, dev, work)
         stage("phase 12: facebook")
         facebook = facebook_phase(torch, dev, work, videos)
+        stage("phase 13: multi-device inference on a virtual one-card mesh")
+        mesh = mesh_phase(torch, dev, rng, work, net, videos, lockstep_videos)
     stage("summary")
     log(f"main path on {card}: {fps:.3f} fps end to end (CLI, decode and PNG writes included), "
         f"{engine_ms:.4f} ms/frame on the device (decoded frames), J&F {jf:.6f}")
@@ -1687,6 +1919,11 @@ def main() -> int:
         "card; lane cap " + ", ".join(f"{k} {facebook['memory'][k]['cap_lanes']} lanes, peak "
                                       f"{facebook['memory'][k]['cap_share']:.4f} of the card" for k in ("480p", "1080p")))
 
+    me = mesh["engine"]
+    log(f"multi-device on {card} (virtual one-card mesh): {me['shards']}-shard engine {me['sharded_ms_per_frame']:.4f} "
+        f"ms/frame against the single engine's {me['single_ms_per_frame']:.4f}, mask agreement {me['agreement']:.7f}; "
+        f"dp 2 x bank 2 lockstep agreement {mesh['lockstep']['agreement']:.7f}; CLI: {mesh['cli']['case']}")
+
     # launches: the main path's (kernel 3: its own path's); launches_by_path:
     # each strategy's run; prob_*: probability mode at 480p, where
     # scaled_dot_product_attention computes the same function
@@ -1697,12 +1934,15 @@ def main() -> int:
             by_path[k][f"lockstep {name} --video-batch 2"] = r["launches"][k]
         by_path[k]["facebook single"] = fb["launches"][k]
         by_path[k]["multimodel resnet50 + facebook"] = facebook["multimodel"]["launches"][k]
+        by_path[k]["sharded engine, 4 bank shards (virtual mesh)"] = mesh["engine"]["launches"][k]
+        by_path[k]["lockstep dp 2 x bank 2 --video-batch 3 (virtual mesh)"] = mesh["lockstep"]["launches"][k]
     lk = lockstep["kernels"]
     prob_keys = dict(prob_bound_ms=prob["bound_ms"], prob_bound_by=prob["bound_by"], prob_library_ms=prob["library_ms"])
     kernels = [
         dict(name="affinity_bank", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/affinity_bank.cu",
              replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:355", launches=launches["affinity_bank"], **aff,
              prob_ms=prob["bank_ms"], **prob_keys, launches_by_path=by_path["affinity_bank"],
+             stats_shards=mesh["kernels"],
              **{key: lk[key] for key in lk if key.startswith("b8_")},
              launches_training=training["cli"]["launches"]["affinity_bank"]),
         dict(name="bottleneck", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/bottleneck.cu",
@@ -1720,6 +1960,7 @@ def main() -> int:
     print(json.dumps({"lockstep": lockstep}))
     print(json.dumps({"training": training}))
     print(json.dumps({"facebook": facebook}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,16 @@
 card raises. All seven strategies run, in label and probability mode, one
 video at a time or, with ``--video-batch`` > 1, that many videos in
 lockstep (``infer/batched.py``), with any of the four models (also as
-multimodel's ``--additional-model-type``). Options this port does not have
-yet raise a clear error: ``--bank-shards`` / ``--dp-shards`` > 1.
+multimodel's ``--additional-model-type``).
+
+Two multi-device axes, as in the JAX CLI, composable under
+``--video-batch``: ``--bank-shards`` shards each stream's bank pixel rows
+(one video at a time: ``parallel/engine_sharded.py``), ``--dp-shards``
+spreads lockstep video lanes (``parallel/batched_dp.py``); with
+``--video-batch`` > 1 they form the 2-D mesh. One process drives every
+device (``parallel/mesh.py``). On the card ``--dp-shards x --bank-shards``
+may not exceed ``torch.cuda.device_count()``; with ``--device cpu`` the mesh
+is virtual (the CPU named that many times), so there is no count to exceed.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 from pathlib import Path
 
 import click
+import torch
 
 from semi_supervised_vos_tpu_torch.utils.logging import logger
 
@@ -52,8 +61,15 @@ STRATEGIES = ["single", "hor-flip", "vert-flip", "2-scale", "multimodel", "hor-2
               help="Fusion operation for probability propagation.")
 @click.option("--video-batch", type=int, default=1,
               help="Videos propagated in lockstep per group (1: one video at a time).")
-@click.option("--bank-shards", type=int, default=1, help="Bank shards (only 1 is ported).")
-@click.option("--dp-shards", type=int, default=1, help="Data-parallel shards (only 1 is ported).")
+@click.option("--bank-shards", type=int, default=1,
+              help="Shard each stream's memory-bank pixel rows over this many devices (the mesh's 'model' "
+                   "axis); composes with every strategy and with --video-batch. On the card at most "
+                   "torch.cuda.device_count() together with --dp-shards; with --device cpu the devices are "
+                   "virtual (the CPU repeated).")
+@click.option("--dp-shards", type=int, default=1,
+              help="Shard --video-batch lanes over this many devices (data-parallel lockstep inference; the "
+                   "mesh's 'data' axis). Requires --video-batch > 1. Counted against the cards as "
+                   "--bank-shards is.")
 def inference_command(ref_num, data, resume, model, temperature, frame_range, sigma_1, sigma_2, save, device,
                       inference_strategy, additional_model, additional_model_type, probability, scale, fusion,
                       video_batch, bank_shards, dp_shards):
@@ -68,13 +84,37 @@ def inference_command(ref_num, data, resume, model, temperature, frame_range, si
         raise click.ClickException(str(err)) from err
 
 
-def check_supported(inference_strategy, additional_resume, bank_shards, dp_shards) -> None:
-    """Raise NotImplementedError for an option this port does not run yet, and
-    a usage error for multimodel without its second checkpoint."""
-    if bank_shards != 1 or dp_shards != 1:
-        raise NotImplementedError("--bank-shards / --dp-shards > 1 (multi-device) are not ported")
+def check_supported(inference_strategy, additional_resume) -> None:
+    """A usage error for multimodel without its second checkpoint."""
     if inference_strategy == "multimodel" and additional_resume is None:
         raise click.UsageError("--inference-strategy multimodel needs --additional-model")
+
+
+def make_meshes(dev, video_batch: int, bank_shards: int, dp_shards: int):
+    """The JAX CLI's rules (``cli/inference.py:145-168``, same messages):
+    (mesh for one video at a time, lockstep mesh), either None. On the card
+    the mesh takes the first ``dp_shards x bank_shards`` cards; on the CPU
+    it is virtual, the CPU repeated."""
+    if dp_shards < 1 or bank_shards < 1:
+        raise click.ClickException("--dp-shards and --bank-shards must be >= 1.")
+    if dp_shards > 1 and video_batch <= 1:
+        raise click.ClickException(
+            "--dp-shards requires --video-batch > 1 (it shards lockstep video lanes over chips)."
+        )
+    n = dp_shards * bank_shards
+    if dev.type == "cuda" and n > torch.cuda.device_count():
+        raise click.ClickException(
+            f"--dp-shards {dp_shards} x --bank-shards {bank_shards} exceeds "
+            f"the {torch.cuda.device_count()} available device(s)."
+        )
+    if n == 1:
+        return None, None
+    from semi_supervised_vos_tpu_torch.parallel.mesh import make_mesh
+
+    devices = [dev] * n if dev.type == "cpu" else None
+    if video_batch > 1:
+        return None, make_mesh(n_data=dp_shards, n_model=bank_shards, devices=devices)
+    return make_mesh(n_data=1, n_model=bank_shards, devices=devices), None
 
 
 def inference_command_impl(ref_num, data, resume, model, temperature, frame_range, sigma_1, sigma_2, save,
@@ -82,7 +122,7 @@ def inference_command_impl(ref_num, data, resume, model, temperature, frame_rang
                            additional_model_type="resnet50", probability_propagation=False, scale=1.15,
                            reduction="mean", video_batch=1, bank_shards=1, dp_shards=1, disable=False):
     """Reference ``src/inference.py:54-113``."""
-    check_supported(inference_strategy, additional_resume, bank_shards, dp_shards)
+    check_supported(inference_strategy, additional_resume)
     from semi_supervised_vos_tpu_torch.data.davis import InferenceDataset
     from semi_supervised_vos_tpu_torch.infer import strategies
     from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig
@@ -91,6 +131,7 @@ def inference_command_impl(ref_num, data, resume, model, temperature, frame_rang
     from semi_supervised_vos_tpu_torch.utils.runtime import resolve_device
 
     dev = resolve_device(device)
+    mesh, mesh_dp = make_meshes(dev, video_batch, bank_shards, dp_shards)
     net = load_torch_checkpoint(resume, VOSNet(model))
     dataset = InferenceDataset(str(Path(data) / "JPEGImages/480p"), inference_strategy=inference_strategy, scale=scale)
     cfg = EngineConfig(
@@ -111,27 +152,30 @@ def inference_command_impl(ref_num, data, resume, model, temperature, frame_rang
         from semi_supervised_vos_tpu_torch.infer import batched
     if lockstep and inference_strategy == "multimodel":
         additional = load_torch_checkpoint(additional_resume, VOSNet(additional_model_type))
-        batched.inference_multimodel_batched(*args, additional, cfg, dev, video_batch, reduction, progress)
+        batched.inference_multimodel_batched(*args, additional, cfg, dev, video_batch, reduction, progress,
+                                             mesh=mesh_dp)
     elif lockstep and inference_strategy == "3-scale":
-        batched.inference_3_scale_batched(*args, cfg, dev, video_batch, scale, progress)
+        batched.inference_3_scale_batched(*args, cfg, dev, video_batch, scale, progress, mesh=mesh_dp)
     elif lockstep and inference_strategy in ("2-scale", "hor-2-scale"):
         batched.inference_2_scale_batched(*args, cfg, dev, video_batch, inference_strategy == "hor-2-scale",
-                                          reduction, progress)
+                                          reduction, progress, mesh=mesh_dp)
     elif lockstep and inference_strategy in batched.BATCHABLE_STRATEGIES:
-        batched.inference_batched(*args, cfg, dev, video_batch, inference_strategy, reduction, progress)
+        batched.inference_batched(*args, cfg, dev, video_batch, inference_strategy, reduction, progress,
+                                  mesh=mesh_dp)
     elif inference_strategy == "single":
-        strategies.inference_single(*args, cfg, dev, progress)
+        strategies.inference_single(*args, cfg, dev, progress, mesh=mesh)
     elif inference_strategy == "hor-flip":
-        strategies.inference_hor_flip(*args, cfg, dev, reduction, progress)
+        strategies.inference_hor_flip(*args, cfg, dev, reduction, progress, mesh=mesh)
     elif inference_strategy == "vert-flip":
-        strategies.inference_ver_flip(*args, cfg, dev, reduction, progress)
+        strategies.inference_ver_flip(*args, cfg, dev, reduction, progress, mesh=mesh)
     elif inference_strategy in ("2-scale", "hor-2-scale"):
-        strategies.inference_2_scale(*args, cfg, dev, scale, reduction, inference_strategy == "hor-2-scale", progress)
+        strategies.inference_2_scale(*args, cfg, dev, scale, reduction, inference_strategy == "hor-2-scale", progress,
+                                     mesh=mesh)
     elif inference_strategy == "multimodel":
         additional = load_torch_checkpoint(additional_resume, VOSNet(additional_model_type))
-        strategies.inference_multimodel(*args, additional, cfg, dev, reduction, progress)
+        strategies.inference_multimodel(*args, additional, cfg, dev, reduction, progress, mesh=mesh)
     elif inference_strategy == "3-scale":
-        strategies.inference_3_scale(*args, cfg, dev, scale, progress)
+        strategies.inference_3_scale(*args, cfg, dev, scale, progress, mesh=mesh)
     else:
         raise ValueError(f"unknown --inference-strategy {inference_strategy}")
     logger.info("Inference done.")

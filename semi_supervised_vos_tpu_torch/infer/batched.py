@@ -23,13 +23,18 @@ host, rows of B frames are decoded ahead on a thread pool, and each
 chunk's PNGs are written on another while later chunks run.
 
 ``_hbm_lanes_cap`` caps the lanes on the card, and the frames of one encode
-call, by a lane-pixel budget measured on the card at two resolutions.
+call, by a lane-pixel budget measured on the card at two resolutions; with
+a mesh the runners scale it by the distinct cards that encode
+(``_mesh_data_chips``).
 
-Not ported here: the multi-device branches of the JAX module
-(``bank_axis``, ``_propagate_bank_sharded``, ``_local_rows``,
-``parallel/batched_dp.py`` and the mesh branch of ``_make_engine``, whose
-single-device branch is the engine's constructor). ``_flip2d`` is
-``strategies._flip_label``.
+With a mesh, :func:`_make_engine` returns ``parallel/batched_dp.py``'s
+engine, which spreads the lanes over the mesh's data rows and, with a
+``model`` axis > 1 (JAX ``bank_axis`` / ``bank_shards``), shards every
+lane's bank rows over each row's devices
+(``parallel/engine_sharded.py::BankShards``, whose ``local_rows`` is JAX
+``_local_rows`` and whose ``propagate`` is JAX ``_propagate_bank_sharded``:
+one stats-mode bank-kernel launch per shard for all B lanes, then the
+combine). ``_flip2d`` is ``strategies._flip_label``.
 """
 
 from __future__ import annotations
@@ -103,10 +108,10 @@ class BatchedPropagationEngine(PropagationEngine):
     """
 
     def __init__(self, model, frame_hw: Tuple[int, int], batch: int, cfg, device,
-                 fusion: Optional[LaneFusion] = None):
+                 fusion: Optional[LaneFusion] = None, table=None):
         if fusion is not None and batch % fusion.lanes:
             raise ValueError(f"batch {batch} is not a multiple of the {fusion.lanes} lanes a video takes")
-        super().__init__(model, frame_hw, cfg, device)
+        super().__init__(model, frame_hw, cfg, device, table)
         self.b = batch
         self.fusion = fusion
 
@@ -282,6 +287,24 @@ def _clamp_video_batch(video_batch: int, lanes: int, *hws, n_chips: int = 1, arc
     return vb
 
 
+def _mesh_data_chips(mesh) -> int:
+    """Distinct cards the lane axis spreads over: the data rows' encoding
+    devices (1 without a mesh, and 1 for a virtual mesh that names one card
+    in every row, whose lanes all share that card)."""
+    return len({row[0] for row in mesh.devices}) if mesh is not None else 1
+
+
+def _make_engine(model, hw, b, cfg, device, fusion=None, mesh=None):
+    """The one-card lockstep engine, or with a mesh of more than one device
+    the mesh engine: lanes over the data rows, bank rows over each row's
+    devices (``parallel/batched_dp.py``)."""
+    if mesh is not None and (mesh.shape["data"] > 1 or mesh.shape["model"] > 1):
+        from semi_supervised_vos_tpu_torch.parallel.batched_dp import DataParallelBatchedEngine
+
+        return DataParallelBatchedEngine(model, hw, b, cfg, mesh, fusion)
+    return BatchedPropagationEngine(model, hw, b, cfg, device, fusion)
+
+
 # ---- runners ---------------------------------------------------------------
 
 
@@ -387,9 +410,10 @@ def _frame(dataset, per_video, video, t_index, length):
 
 def inference_batched(dataset, annotation_dir, save_dir, model, cfg, device, video_batch: int = 4,
                       strategy: str = "single", reduction: str = "mean",
-                      progress: Optional[Callable[[], None]] = None) -> None:
+                      progress: Optional[Callable[[], None]] = None, mesh=None) -> None:
     """``single``, ``hor-flip`` and ``vert-flip`` with ``video_batch`` videos
-    (x the strategy's lanes) per lockstep group."""
+    (x the strategy's lanes) per lockstep group; with ``mesh`` the lanes
+    spread over its data rows and the banks over each row's devices."""
     lane_spec = _STRATEGY_LANES[strategy]
     lanes = len(lane_spec)
     fusion = LaneFusion(tuple(s[2] for s in lane_spec), cfg.probability_propagation, reduction)
@@ -401,10 +425,11 @@ def inference_batched(dataset, annotation_dir, save_dir, model, cfg, device, vid
     def resolution(video):
         return tuple(lane_frames(dataset[per_video[video][0]][0])[0].shape[:2])
 
-    for hw, chunk, lengths in _groups(per_video, resolution,
-                                      lambda hw: _clamp_video_batch(video_batch, lanes, hw, archs=(model.model,))):
+    n_chips = _mesh_data_chips(mesh)
+    for hw, chunk, lengths in _groups(per_video, resolution, lambda hw: _clamp_video_batch(
+            video_batch, lanes, hw, n_chips=n_chips, archs=(model.model,))):
         labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
-        engine = BatchedPropagationEngine(model, hw, len(chunk) * lanes, _with_budget(cfg, d_max), device, fusion)
+        engine = _make_engine(model, hw, len(chunk) * lanes, _with_budget(cfg, d_max), device, fusion, mesh)
         state = None
 
         def row(t):
@@ -436,7 +461,7 @@ def inference_single_batched(dataset, annotation_dir, save_dir, model, cfg, devi
 
 def inference_multimodel_batched(dataset, annotation_dir, save_dir, model, additional_model, cfg, device,
                                  video_batch: int = 4, reduction: str = "mean",
-                                 progress: Optional[Callable[[], None]] = None) -> None:
+                                 progress: Optional[Callable[[], None]] = None, mesh=None) -> None:
     """``multimodel`` in lockstep: each network keeps its own banks
     (reference ``inference_utils.py:411-511``) and the two are fused at
     feature resolution on the device, which is exact: with no flips both
@@ -458,12 +483,13 @@ def inference_multimodel_batched(dataset, annotation_dir, save_dir, model, addit
 
     # two engines share the card: two lanes a video, under the wider network's envelope
     archs = (model.model, additional_model.model)
-    for hw, chunk, lengths in _groups(per_video, resolution,
-                                      lambda hw: _clamp_video_batch(video_batch, 2, hw, archs=archs)):
+    n_chips = _mesh_data_chips(mesh)
+    for hw, chunk, lengths in _groups(per_video, resolution, lambda hw: _clamp_video_batch(
+            video_batch, 2, hw, n_chips=n_chips, archs=archs)):
         labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
         gcfg = _with_budget(cfg, d_max)
-        e1 = BatchedPropagationEngine(model, hw, len(chunk), gcfg, device)
-        e2 = BatchedPropagationEngine(additional_model, hw, len(chunk), gcfg, device)
+        e1 = _make_engine(model, hw, len(chunk), gcfg, device, mesh=mesh)
+        e2 = _make_engine(additional_model, hw, len(chunk), gcfg, device, mesh=mesh)
         st1 = st2 = None
 
         def row(t):
@@ -488,7 +514,7 @@ def inference_multimodel_batched(dataset, annotation_dir, save_dir, model, addit
 
 def inference_2_scale_batched(dataset, annotation_dir, save_dir, model, cfg, device, video_batch: int = 4,
                               flip_pred: bool = False, reduction: str = "mean",
-                              progress: Optional[Callable[[], None]] = None) -> None:
+                              progress: Optional[Callable[[], None]] = None, mesh=None) -> None:
     """``2-scale`` / ``hor-2-scale`` (``flip_pred``) in lockstep: one engine
     per resolution (the second-scale stream has its own feature grid), each
     with its own banks. Label mode fuses on the host: each stream's argmax
@@ -504,13 +530,14 @@ def inference_2_scale_batched(dataset, annotation_dir, save_dir, model, cfg, dev
         return tuple(item[0].shape[:2]), tuple(item[1].shape[:2])
 
     # two per-resolution engines share the card: two lanes a video
-    clamp = lambda hws: _clamp_video_batch(video_batch, 2, *hws, archs=(model.model,))  # noqa: E731
+    n_chips = _mesh_data_chips(mesh)
+    clamp = lambda hws: _clamp_video_batch(video_batch, 2, *hws, n_chips=n_chips, archs=(model.model,))  # noqa: E731
     for (hw1, hw2), chunk, lengths in _groups(per_video, resolutions, clamp):
         labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
         gcfg = _with_budget(cfg, d_max)
         b = len(chunk)
-        e1 = BatchedPropagationEngine(model, hw1, b, gcfg, device)
-        e2 = BatchedPropagationEngine(model, hw2, b, gcfg, device)
+        e1 = _make_engine(model, hw1, b, gcfg, device, mesh=mesh)
+        e2 = _make_engine(model, hw2, b, gcfg, device, mesh=mesh)
         st1 = st2 = None
 
         def fuse_prob(s1, s2):  # (N, B, D, P_i) → (N, B, H, W) uint8
@@ -557,7 +584,8 @@ def inference_2_scale_batched(dataset, annotation_dir, save_dir, model, cfg, dev
 
 
 def inference_3_scale_batched(dataset, annotation_dir, save_dir, model, cfg, device, video_batch: int = 4,
-                              scale: float = 1.0, progress: Optional[Callable[[], None]] = None) -> None:
+                              scale: float = 1.0, progress: Optional[Callable[[], None]] = None,
+                              mesh=None) -> None:
     """``3-scale`` in lockstep: three passes at input scales [0.9, 1.0,
     ``scale``] (reference ``inference_utils.py:514-595``), each running
     ``video_batch`` videos per resolution group; each pass's masks are
@@ -581,11 +609,11 @@ def inference_3_scale_batched(dataset, annotation_dir, save_dir, model, cfg, dev
             h, w = dataset[per_video[video][0]][0].shape[:2]
             return int(np.ceil(h * sc)), int(np.ceil(w * sc))
 
-        for hw, chunk, lengths in _groups(per_video, resolution,
-                                          lambda hw: _clamp_video_batch(video_batch, 1, hw, archs=(model.model,))):
+        for hw, chunk, lengths in _groups(per_video, resolution, lambda hw: _clamp_video_batch(
+                video_batch, 1, hw, n_chips=_mesh_data_chips(mesh), archs=(model.model,))):
             labels, pals, d_max = _first_labels(chunk, annotation_dir, save_dir, copy=pass_idx == 0)
             palettes.update(pals)
-            engine = BatchedPropagationEngine(model, hw, len(chunk), _with_budget(cfg, d_max), device)
+            engine = _make_engine(model, hw, len(chunk), _with_budget(cfg, d_max), device, mesh=mesh)
             state = None
 
             def row(t):

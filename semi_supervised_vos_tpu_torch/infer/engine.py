@@ -95,9 +95,11 @@ class EngineConfig:
 class PropagationEngine:
     """Drives one video stream at one (H, W) resolution."""
 
-    def __init__(self, model, frame_hw: Tuple[int, int], cfg: EngineConfig, device):
+    def __init__(self, model, frame_hw: Tuple[int, int], cfg: EngineConfig, device, table=None):
         self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
+        # engines of one mesh share one folded table per card (``table``,
+        # already on ``device``); the model then stays where it is
+        self.model = (model if table is not None else model.to(self.device)).eval()
         self.cfg = cfg
         self.h, self.w = frame_hw
         self.hd, self.wd = out_spatial(self.h, self.w)
@@ -111,17 +113,24 @@ class PropagationEngine:
             self.dtype = torch.bfloat16
             self.label_dtype = torch.bfloat16
             self.d_pad = -(-cfg.num_classes // 8) * 8
-            with torch.no_grad():
-                self.table = fold_vosnet(self.model, self.dtype)
+            if table is None:
+                with torch.no_grad():
+                    table = fold_vosnet(self.model, self.dtype)
+            self.table = table
         else:
             self.dtype = torch.float32
             self.label_dtype = torch.float32
             self.d_pad = cfg.num_classes
-            # probability mode has no spatial prior: no (P, P) matrices
-            self._wd = self._ws = None
-            if not cfg.probability_propagation:
-                self._wd = spatial_weight((self.hd, self.wd), cfg.sigma_1, device=self.device)
-                self._ws = spatial_weight((self.hd, self.wd), cfg.sigma_2, device=self.device)
+            self._wd, self._ws = self._prior_matrices()
+
+    def _prior_matrices(self):
+        """The CPU path's dense (P, P) Gaussian priors, dense and sparse;
+        none in probability mode, which has no spatial prior."""
+        if self.cfg.probability_propagation:
+            return None, None
+        hw = (self.hd, self.wd)
+        return (spatial_weight(hw, self.cfg.sigma_1, device=self.device),
+                spatial_weight(hw, self.cfg.sigma_2, device=self.device))
 
     @torch.no_grad()
     def encode(self, frames_u8) -> torch.Tensor:

@@ -92,6 +92,18 @@ def _with_budget(cfg: EngineConfig, num_classes: int) -> EngineConfig:
     return dataclasses.replace(cfg, num_classes=num_classes)
 
 
+def _make_engine(model, hw, cfg: EngineConfig, device, mesh=None) -> PropagationEngine:
+    """The one-card engine, or with a mesh the bank-sharded engine
+    (``--bank-shards``; ``parallel/engine_sharded.py``). Every strategy
+    builds its engines here, so bank sharding composes with all seven: each
+    stream's bank shards its pixel rows and the fusion is unchanged."""
+    if mesh is None:
+        return PropagationEngine(model, hw, cfg, device)
+    from semi_supervised_vos_tpu_torch.parallel.engine_sharded import ShardedPropagationEngine
+
+    return ShardedPropagationEngine(model, hw, cfg, mesh)
+
+
 def _make_fuser(streams: Sequence[Stream], out_hw: Tuple[int, int], probability: bool, reduction: str):
     """The fusion tail: per-stream (N, D, P) scores → (N, H, W) uint8 masks,
     on the scores' device, one frame at a time (a frame's full-resolution
@@ -222,40 +234,50 @@ def run_streams(
 # ---- strategy entry points -------------------------------------------------
 
 
-def inference_single(dataset, annotation_dir, save_dir, model, cfg: EngineConfig, device, progress=None) -> None:
+def inference_single(dataset, annotation_dir, save_dir, model, cfg: EngineConfig, device, progress=None,
+                     mesh=None) -> None:
     """Reference ``inference_utils.py:23-87``: one stream, argmax of the
-    propagated labels."""
+    propagated labels. Every strategy takes ``mesh`` (``--bank-shards``)."""
 
     def make(hw, d):
-        return [Stream(PropagationEngine(model, hw, _with_budget(cfg, d), device), None)]
+        return [Stream(_make_engine(model, hw, _with_budget(cfg, d), device, mesh), None)]
 
     run_streams(dataset, annotation_dir, save_dir, make, cfg.probability_propagation, "mean", progress)
 
 
-def _inference_flip(dataset, annotation_dir, save_dir, model, cfg, device, how, reduction, progress):
+def inference_single_sharded(dataset, annotation_dir, save_dir, model, cfg: EngineConfig, mesh,
+                             progress=None) -> None:
+    """``single`` with the bank sharded over the mesh's ``model`` axis; an
+    alias of :func:`inference_single` with ``mesh``, as in the JAX package."""
+    inference_single(dataset, annotation_dir, save_dir, model, cfg, mesh.devices[0][0], progress, mesh=mesh)
+
+
+def _inference_flip(dataset, annotation_dir, save_dir, model, cfg, device, how, reduction, progress, mesh=None):
     """One engine, two streams: the frames and their flip (``how``), whose
     labels are flipped in and whose predictions are flipped back."""
 
     def make(hw, d):
-        e = PropagationEngine(model, hw, _with_budget(cfg, d), device)
+        e = _make_engine(model, hw, _with_budget(cfg, d), device, mesh)
         return [Stream(e, 0), Stream(e, 1, label_flip=how, pred_flip=how)]
 
     run_streams(dataset, annotation_dir, save_dir, make, cfg.probability_propagation, reduction, progress)
 
 
-def inference_hor_flip(dataset, annotation_dir, save_dir, model, cfg, device, reduction="mean", progress=None):
+def inference_hor_flip(dataset, annotation_dir, save_dir, model, cfg, device, reduction="mean", progress=None,
+                       mesh=None):
     """Reference ``inference_utils.py:90-193``."""
-    _inference_flip(dataset, annotation_dir, save_dir, model, cfg, device, "h", reduction, progress)
+    _inference_flip(dataset, annotation_dir, save_dir, model, cfg, device, "h", reduction, progress, mesh)
 
 
-def inference_ver_flip(dataset, annotation_dir, save_dir, model, cfg, device, reduction="mean", progress=None):
+def inference_ver_flip(dataset, annotation_dir, save_dir, model, cfg, device, reduction="mean", progress=None,
+                       mesh=None):
     """Reference ``inference_utils.py:196-299`` (un-flipped vertically: see
     the module docstring)."""
-    _inference_flip(dataset, annotation_dir, save_dir, model, cfg, device, "v", reduction, progress)
+    _inference_flip(dataset, annotation_dir, save_dir, model, cfg, device, "v", reduction, progress, mesh)
 
 
 def inference_2_scale(dataset, annotation_dir, save_dir, model, cfg, device, scale, reduction="mean",
-                      flip_pred=False, progress=None):
+                      flip_pred=False, progress=None, mesh=None):
     """Reference ``inference_utils.py:302-408``: a second engine at
     ``ceil((H, W) · scale)`` (``flip_pred=True`` is ``hor-2-scale``, whose
     second stream is mirrored)."""
@@ -265,29 +287,30 @@ def inference_2_scale(dataset, annotation_dir, save_dir, model, cfg, device, sca
         hw2 = (int(np.ceil(hw[0] * scale)), int(np.ceil(hw[1] * scale)))
         flip = "h" if flip_pred else None
         return [
-            Stream(PropagationEngine(model, hw, c, device), 0),
-            Stream(PropagationEngine(model, hw2, c, device), 1, label_flip=flip, pred_flip=flip),
+            Stream(_make_engine(model, hw, c, device, mesh), 0),
+            Stream(_make_engine(model, hw2, c, device, mesh), 1, label_flip=flip, pred_flip=flip),
         ]
 
     run_streams(dataset, annotation_dir, save_dir, make, cfg.probability_propagation, reduction, progress)
 
 
 def inference_multimodel(dataset, annotation_dir, save_dir, model, additional_model, cfg, device,
-                         reduction="mean", progress=None):
+                         reduction="mean", progress=None, mesh=None):
     """Reference ``inference_utils.py:411-511``: the same frames through two
     networks."""
 
     def make(hw, d):
         c = _with_budget(cfg, d)
         return [
-            Stream(PropagationEngine(model, hw, c, device), None),
-            Stream(PropagationEngine(additional_model, hw, c, device), None),
+            Stream(_make_engine(model, hw, c, device, mesh), None),
+            Stream(_make_engine(additional_model, hw, c, device, mesh), None),
         ]
 
     run_streams(dataset, annotation_dir, save_dir, make, cfg.probability_propagation, reduction, progress)
 
 
-def inference_3_scale(dataset, annotation_dir, save_dir, model, cfg, device, scale, progress=None) -> None:
+def inference_3_scale(dataset, annotation_dir, save_dir, model, cfg, device, scale, progress=None,
+                      mesh=None) -> None:
     """Reference ``inference_utils.py:514-595``: three sequential passes over
     the whole dataset at input scales [0.9, 1.0, ``scale``] (nearest rescale
     of the frames on the host), each pass's masks upsampled to the
@@ -338,7 +361,7 @@ def inference_3_scale(dataset, annotation_dir, save_dir, model, cfg, device, sca
                     label, d, palettes[video] = load_annotation(annotation)
                     budget = engine.cfg.num_classes if engine is not None else 0
                     if engine is None or (engine.h, engine.w) != (hs, ws) or d > budget:
-                        engine = PropagationEngine(model, (hs, ws), _with_budget(cfg, max(d, budget)), device)
+                        engine = _make_engine(model, (hs, ws), _with_budget(cfg, max(d, budget)), device, mesh)
                     if pass_idx == 0:
                         copy_first_annotation(annotation, save_dir, video)
                     # first-frame labels go to this pass's scaled grid

@@ -167,21 +167,24 @@ def _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, valid, dense, *, fe
     table = torch.from_numpy(table).pin_memory().to(dev, non_blocking=True)
 
     lib = _library()
-    splits, ips = _plan(torch.cuda.current_device() if dev.index is None else dev.index, k, b, p_loc, c, p, wd)
-    # partial (m, l, acc) of each split of the bank sweep
-    pm = torch.empty((splits, b, p), dtype=torch.float32, device=dev)
-    pl = torch.empty_like(pm)
-    pacc = torch.empty((splits, b, d_pad, p), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # label columns in groups of at most LABEL_GROUP per sweep
-    for d_off in range(0, d_pad, LABEL_GROUP):
-        err = lib.affinity_bank_launch(
-            bank_feats.data_ptr(), bank_labels.data_ptr(), tgt.data_ptr(), pm.data_ptr(), pl.data_ptr(),
-            pacc.data_ptr(), table.data_ptr(), k, cap, b, p_loc, c, d_pad, d_off, min(LABEL_GROUP, d_pad - d_off),
-            p, wd, int(row_base), splits, ips, stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"affinity_bank kernel launch failed: cudaError {err}")
+    # the library's host code works on the current device (its shared-memory
+    # attribute, SM count and occupancy, the launch itself): make it dev's
+    with torch.cuda.device(dev):
+        splits, ips = _plan(dev.index, k, b, p_loc, c, p, wd)
+        # partial (m, l, acc) of each split of the bank sweep
+        pm = torch.empty((splits, b, p), dtype=torch.float32, device=dev)
+        pl = torch.empty_like(pm)
+        pacc = torch.empty((splits, b, d_pad, p), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # label columns in groups of at most LABEL_GROUP per sweep
+        for d_off in range(0, d_pad, LABEL_GROUP):
+            err = lib.affinity_bank_launch(
+                bank_feats.data_ptr(), bank_labels.data_ptr(), tgt.data_ptr(), pm.data_ptr(), pl.data_ptr(),
+                pacc.data_ptr(), table.data_ptr(), k, cap, b, p_loc, c, d_pad, d_off,
+                min(LABEL_GROUP, d_pad - d_off), p, wd, int(row_base), splits, ips, stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"affinity_bank kernel launch failed: cudaError {err}")
     return _launch_combine(lib, pm, pl, pacc, return_stats)
 
 
@@ -220,11 +223,12 @@ def _launch_combine(lib, pm, pl, pacc, return_stats):
     out = torch.empty((b, d_pad, p), dtype=torch.float32, device=dev)
     m = torch.empty((b, p), dtype=torch.float32, device=dev) if return_stats else None
     l = torch.empty((b, p), dtype=torch.float32, device=dev) if return_stats else None
-    err = lib.affinity_combine_launch(
-        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
-        m.data_ptr() if return_stats else None, l.data_ptr() if return_stats else None,
-        s, b, p, d_pad, int(return_stats), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        err = lib.affinity_combine_launch(
+            pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
+            m.data_ptr() if return_stats else None, l.data_ptr() if return_stats else None,
+            s, b, p, d_pad, int(return_stats), torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"affinity_combine kernel launch failed: cudaError {err}")
     return (m, l, out) if return_stats else out

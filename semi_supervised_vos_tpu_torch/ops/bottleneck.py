@@ -87,11 +87,14 @@ def bottleneck_block(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     fn = load("bottleneck").bottleneck_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    err = fn(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(), out.data_ptr(), n, h, w, c, c4,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # the library's host code (shared-memory attribute, SM count, occupancy)
+    # and the launch work on the current device: make it x's
+    with torch.cuda.device(dev):
+        err = fn(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            w3.data_ptr(), b3.data_ptr(), out.data_ptr(), n, h, w, c, c4,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"bottleneck kernel launch failed: cudaError {err}")
     bottleneck_block.launches += 1

@@ -124,15 +124,23 @@ def test_missing_card_is_an_error(davis_and_ckpt, tmp_path):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--model", "facebook", "--bank-shards", "2"], ["--dp-shards", "2"], ["--video-batch", "2", "--dp-shards", "2"],
+    [["--video-batch", "2", "--bank-shards", "2"], ["--dp-shards", "2"], ["--video-batch", "2", "--dp-shards", "2"],
      ["--bank-shards", "2"]],
 )
 def test_unported_options_raise(davis_and_ckpt, tmp_path, flags):
-    """Only the multi-device options are refused (facebook runs)."""
+    """The multi-device options run on the CPU's virtual mesh; only what the
+    JAX CLI refuses is refused, with its message (``--dp-shards`` without
+    ``--video-batch``). ``tests/test_torch_batched_dp.py`` holds their PNGs
+    against the unsharded runs."""
     root, ckpt = davis_and_ckpt
     res = CliRunner().invoke(cli, _inference_args(root, ckpt, tmp_path / "out") + ["--device", "cpu"] + flags)
-    assert res.exit_code != 0
-    assert "--bank-shards / --dp-shards > 1 (multi-device) are not ported" in res.output
+    if "--video-batch" not in flags and "--dp-shards" in flags:
+        assert res.exit_code != 0
+        assert "--dp-shards requires --video-batch > 1" in res.output
+        assert not list(tmp_path.rglob("*.png"))
+    else:
+        assert res.exit_code == 0, res.output
+        assert len(list((tmp_path / "out").rglob("*.png"))) == 10
 
 
 def test_multimodel_needs_its_second_checkpoint(davis_and_ckpt, tmp_path):

@@ -239,20 +239,14 @@ def _moving_squares(nprng, videos, frames, h, w):
     return clips, labels
 
 
-def test_lockstep_engine_matches_single_engines(card, nprng):
-    """The lockstep engine at B = 4 (resnet50, both kernels, one bank-kernel
-    launch per step) against four single engines on the card; the encode
-    batches differ (B x 8 frames against 8), so cuDNN may take other
-    algorithms and bf16 moves a near-tied argmax now and then."""
-    from semi_supervised_vos_tpu_torch.infer.batched import BatchedPropagationEngine
-    from semi_supervised_vos_tpu_torch.infer.engine import IMAGENET_MEAN, IMAGENET_STD, EngineConfig, PropagationEngine
+def _calibrated_resnet50(card, clips):
+    """A random resnet50 whose features tell the objects apart: BN statistics
+    estimated on the clips, residual branches scaled down (chip_smoke.py's
+    recipe)."""
+    from semi_supervised_vos_tpu_torch.infer.engine import IMAGENET_MEAN, IMAGENET_STD
     from semi_supervised_vos_tpu_torch.models.resnet import Bottleneck, init_weights
     from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
 
-    b, n, h, w = 4, 17, 128, 224
-    clips, labels = _moving_squares(nprng, b, n, h, w)
-    # a random resnet50 whose features tell the objects apart: BN statistics
-    # estimated on the clips, residual branches scaled down (chip_smoke.py's recipe)
     net = VOSNet("resnet50")
     init_weights(net, torch.Generator().manual_seed(0))
     with torch.no_grad():
@@ -262,10 +256,23 @@ def test_lockstep_engine_matches_single_engines(card, nprng):
                 m.momentum = None
             if isinstance(m, Bottleneck):
                 m.bn3.weight.mul_(0.1)
-        x = torch.as_tensor(clips.reshape(-1, h, w, 3), device=card).float() / 255.0
+        x = torch.as_tensor(clips.reshape((-1,) + clips.shape[-3:]), device=card).float() / 255.0
         x = (x - torch.as_tensor(IMAGENET_MEAN, device=card)) / torch.as_tensor(IMAGENET_STD, device=card)
         net.to(card).train()(x.permute(0, 3, 1, 2))
-    net.eval()
+    return net.eval()
+
+
+def test_lockstep_engine_matches_single_engines(card, nprng):
+    """The lockstep engine at B = 4 (resnet50, both kernels, one bank-kernel
+    launch per step) against four single engines on the card; the encode
+    batches differ (B x 8 frames against 8), so cuDNN may take other
+    algorithms and bf16 moves a near-tied argmax now and then."""
+    from semi_supervised_vos_tpu_torch.infer.batched import BatchedPropagationEngine
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
+
+    b, n, h, w = 4, 17, 128, 224
+    clips, labels = _moving_squares(nprng, b, n, h, w)
+    net = _calibrated_resnet50(card, clips)
     cfg = EngineConfig()
     engine = BatchedPropagationEngine(net, (h, w), b, cfg, card)
     state = engine.start_videos(clips[0], labels)
@@ -279,6 +286,68 @@ def test_lockstep_engine_matches_single_engines(card, nprng):
         masks = torch.cat([single.step_chunk_small(clips[s : s + 8, v], st, s)[0] for s in range(1, n, 8)])
         assert masks.max().item() >= 1  # the comparison is not between constant masks
         assert (lockstep[:, v] == masks).double().mean().item() >= 0.999, v
+
+
+def test_sharded_engine_matches_single_engine(card, nprng):
+    """``ShardedPropagationEngine`` on a virtual mesh that names the card
+    twice (two bank shards, the stats-mode kernel per shard, the combine
+    kernel) against the single engine: two bank-kernel launches a frame, and
+    the masks differ only where bf16 and the split softmax move a near-tie."""
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
+    from semi_supervised_vos_tpu_torch.parallel.engine_sharded import ShardedPropagationEngine
+    from semi_supervised_vos_tpu_torch.parallel.mesh import make_mesh
+
+    n, h, w = 17, 128, 224
+    clips, labels = _moving_squares(nprng, 1, n, h, w)
+    net = _calibrated_resnet50(card, clips)
+    cfg = EngineConfig()
+    sharded = ShardedPropagationEngine(net, (h, w), cfg, make_mesh(1, 2, devices=[card] * 2))
+    assert sharded.p_loc * 2 >= sharded.p and all(f.is_cuda for f in sharded.init_state().feats)
+    single = PropagationEngine(net, (h, w), cfg, card)
+    out = {}
+    for name, engine in (("sharded", sharded), ("single", single)):
+        state = engine.start_video(clips[0, 0], labels[0])
+        before = tap.affinity_from_bank_batched.launches
+        out[name] = torch.cat([engine.step_chunk_small(clips[s : s + 8, 0], state, s)[0] for s in range(1, n, 8)])
+        torch.cuda.synchronize()
+        assert tap.affinity_from_bank_batched.launches == before + (2 if name == "sharded" else 1) * (n - 1)
+    assert out["single"].max().item() >= 1  # the comparison is not between constant masks
+    assert (out["sharded"] == out["single"]).double().mean().item() >= 0.995
+
+
+def test_kernels_launch_on_their_tensors_device(card, nprng):
+    """With card 0 current, tensors on card 1 run both kernels there (the
+    libraries' host code and launches follow the runtime's current device),
+    match their plain versions, and leave card 0 current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: with one, every tensor lies on the current card")
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    hd, wd, c, d_pad, cap, k = 16, 20, 256, 24, 45, 9
+    p = hd * wd
+    feats, labels = _bank(nprng, other, cap, 1, p, c, d_pad)
+    tgt = torch.as_tensor(nprng.standard_normal((1, p, c)) * 0.2, dtype=torch.float32).to(other, torch.bfloat16)
+    tgt = tgt.float()
+    idx, valid, dense = sample_frames(50, 40, k)
+    for stats in (False, True):
+        kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense, return_stats=stats)
+        got = tap.affinity_from_bank_batched(feats, labels, tgt, idx % cap, **kw)
+        torch.cuda.synchronize(other)
+        expect = tap.affinity_from_bank_plain(feats.float(), labels.float(), tgt, idx % cap, **kw)
+        for g, e in zip(got if stats else (got,), expect if stats else (expect,)):
+            assert g.device == other
+            torch.testing.assert_close(g, e, rtol=1e-4, atol=3.4e-5)
+    x = torch.as_tensor(nprng.standard_normal((1, 13, 27, 512)) * 0.5, dtype=torch.float32).to(other, torch.bfloat16)
+    shapes = [(512, 128), (128,), (3, 3, 128, 128), (128,), (128, 512), (512,)]
+    wts = [torch.as_tensor(nprng.standard_normal(s) * (0.05 if len(s) > 1 else 0.1), dtype=torch.float32)
+           .to(other, torch.bfloat16 if i % 2 == 0 else torch.float32) for i, s in enumerate(shapes)]
+    got = tb.bottleneck_block(x, *wts).float()
+    torch.cuda.synchronize(other)
+    expect = tb.bottleneck_block_plain(x.float(), *[t.float() for t in wts])
+    assert got.device == other
+    assert torch.nn.functional.cosine_similarity(got.flatten(), expect.flatten(), dim=0) >= 0.9999
+    assert (got - expect).abs().max() / expect.abs().max() <= 2e-2
+    assert torch.cuda.current_device() == 0
 
 
 def _train_clip(nprng, b, t, crop):
