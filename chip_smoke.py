@@ -79,17 +79,31 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
      at ``--video-batch`` 3 (a padded video per group of 3) against the
      one-card lockstep CLI; (d) ``--bank-shards 1 --dp-shards 1`` through
      the CLI, and ``--bank-shards 2``: refused on one card with the JAX
-     CLI's message, run and held to the one-card J&F on two or more.
+     CLI's message, run and held to the one-card J&F on two or more;
+ 14. float32 inference (``SVOS_INFER_DTYPE=float32``): (a) the float32 bank
+     kernel (``csrc/affinity_bank_f32.cu``) against its plain version at
+     480p, B = 1 and 8, probability mode, a ragged P and K = 1, four stats
+     shards combined against the unsharded kernel, timed beside the FP32
+     bound and float32 ``scaled_dot_product_attention``; (b) the float32
+     bottleneck (``csrc/bottleneck_f32.cu``) against its plain version with
+     TF32 off at 8 and 64 frames, beside three float32 cuDNN convolutions;
+     (c) the float32 encoder of resnet50 and facebook against the float32
+     module on the CPU; (d) the main path through the CLI: only the float32
+     kernels launch, fps and engine ms/frame beside bf16's, card vs CPU
+     masks; (e) ``--video-batch 8``, one resnet50 chunk at the float32 lane
+     cap at 480p and 1080p, dp 2 x bank 2 on the virtual mesh; (f)
+     ``SVOS_FAST_ENCODER=0``; (g) ``SVOS_PROFILE`` and ``SVOS_TRACE_DIR``.
 
 Times are medians of 20 CUDA-event timings, printed with their p10-p90
 spread. The line before the last is the card's name and power limit as
 nvidia-smi reports them, the one before that a JSON summary of every
 kernel, and before that JSON lines for the strategies, the lockstep phase,
-training, facebook and the mesh phase.
+training, facebook, the mesh phase and float32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -104,6 +118,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 MUFU_EXP_PER_CLOCK_PER_SM = 16  # ex2 results per clock per SM on compute capability 9.0
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 AFFINITY_GATE = 3.4e-5  # max_abs of the bank kernel vs float32 (JAX on-chip gate)
@@ -190,11 +205,12 @@ def mufu_exp_rate() -> float:
     return MUFU_EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
-def bound(tensor_ops: float, nbytes: float, exps: float = 0.0):
+def bound(tensor_ops: float, nbytes: float, exps: float = 0.0, peak: float = PEAK_BF16_FLOPS):
     """Least time (ms) for the work, and what sets it: the largest of the
-    bf16 tensor-core operations at their peak rate, the exps at the MUFU
-    pipe's rate (both "operations") and the bytes at the memory rate."""
-    t_tensor = tensor_ops / PEAK_BF16_FLOPS * 1e3
+    operations at their peak rate (``peak``: bf16 tensor cores, or
+    PEAK_F32_FLOPS for float32 work), the exps at the MUFU pipe's rate (both
+    "operations") and the bytes at the memory rate."""
+    t_tensor = tensor_ops / peak * 1e3
     t_exp = exps / mufu_exp_rate() * 1e3 if exps else 0.0
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = max(t_tensor, t_exp)
@@ -207,7 +223,7 @@ def check(cond: bool, what: str) -> None:
     log(f"  ok: {what}")
 
 
-def affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes):
+def affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes, peak: float = PEAK_BF16_FLOPS):
     """Least time (ms) of one propagation of a P-pixel frame over K slots,
     counting the work this frame's data needs: the similarity (2·K·P²·C)
     and the softmax exp of every pair; the label product (2·D a pair) where
@@ -219,7 +235,7 @@ def affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes):
     near = [int((dy2 * float(s) < 36.0).sum()) for s in inv_sigma2]
     ops = 2.0 * k * p * p * c + 2.0 * sum(near) * d
     exps = k * p * p + sum(2 * p - 1 + 2 * wd - 1 for s in inv_sigma2 if s > 0)
-    return bound(ops, nbytes, exps)
+    return bound(ops, nbytes, exps, peak)
 
 
 # ---- phase 2: affinity ---------------------------------------------------
@@ -726,9 +742,10 @@ def main_path_phase(torch, dev, work: Path, net, videos: dict):
     return launches, n_frames / wall, jf
 
 
-def engine_timing(torch, dev, net, work: Path, video: str, n: int):
+def engine_timing(torch, dev, net, work: Path, video: str, n: int, dtype=None):
     """Engine time per frame on the card with the frames already decoded
-    (CUDA events around start_video + every chunk)."""
+    (CUDA events around start_video + every chunk), at the compute ``dtype``
+    (None: the card's default, bf16)."""
     from PIL import Image
 
     from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
@@ -737,7 +754,7 @@ def engine_timing(torch, dev, net, work: Path, video: str, n: int):
     frames = np.stack([np.asarray(Image.open(work / "davis" / "JPEGImages" / "480p" / video / f"{t:05d}.jpg"))
                        for t in range(n)])
     label = np.asarray(Image.open(work / "davis" / "Annotations" / "480p" / video / "00000.png")).astype(np.int32)
-    engine = PropagationEngine(net, (H480, W480), EngineConfig(), dev)
+    engine = PropagationEngine(net, (H480, W480), EngineConfig(compute_dtype=dtype), dev)
     chunk = chunk_len()
 
     def run():
@@ -753,7 +770,8 @@ def engine_timing(torch, dev, net, work: Path, video: str, n: int):
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / n
-    log(f"{net.model} engine on the card, decoded frames: {ms:.4f} ms/frame ({1000.0 / ms:.3f} fps) over {n} frames")
+    log(f"{net.model} engine on the card ({engine.dtype}), decoded frames: {ms:.4f} ms/frame ({1000.0 / ms:.3f} fps) "
+        f"over {n} frames")
     return ms
 
 
@@ -772,28 +790,38 @@ def shrunk_clip(work: Path, n: int, h: int, w: int):
     return frames, label
 
 
-def small_clip_parity(torch, dev, net, work: Path):
-    """Card (bf16, both kernels) vs CPU (float32, golden) engine masks on the
-    long video's first 12 frames shrunk to 120x214, past a ring wrap
-    (frame_range 6): they differ only where bf16 moves a near-tie."""
+_SMALL_CLIP_CPU_MASKS = {}  # id(net) -> the CPU engine's masks of the small clip
+
+
+def small_clip_parity(torch, dev, net, work: Path, dtype=None, gate: float = 0.98):
+    """Card (bf16 by default, both kernels) vs CPU (float32, golden) engine
+    masks on the long video's first 12 frames shrunk to 120x214, past a ring
+    wrap (frame_range 6): they differ only where bf16 (or, with ``dtype``
+    float32, the summation order) moves a near-tie. The CPU masks of a
+    network are computed once and reused."""
     from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
 
     h, w, n = SMALL_CLIP
     frames, label = shrunk_clip(work, n, h, w)
-    cfg = EngineConfig(frame_range=6)
     out = {}
+    if id(net) in _SMALL_CLIP_CPU_MASKS:
+        out["cpu"] = _SMALL_CLIP_CPU_MASKS[id(net)]
     for device in ("cpu", dev):
+        if str(device) in out:
+            continue
+        cfg = EngineConfig(frame_range=6, compute_dtype=dtype if device == dev else None)
         engine = PropagationEngine(net, (h, w), cfg, device)
         state = engine.start_video(frames[0], label)
         masks, _ = engine.step_chunk_small(frames[1:], state, 1)
         out[str(device)] = masks.cpu().numpy()
+    _SMALL_CLIP_CPU_MASKS[id(net)] = out["cpu"]
     net.to(dev)
     agree = float((out["cpu"] == out[str(dev)]).mean())
     classes = np.unique(out["cpu"]).tolist()
-    log(f"small clip {h}x{w}, {n} frames, {net.model}: CPU mask classes {classes}, card vs CPU mask agreement "
-        f"{agree:.6f}")
+    log(f"small clip {h}x{w}, {n} frames, {net.model}, card {dtype or torch.bfloat16}: CPU mask classes {classes}, "
+        f"card vs CPU mask agreement {agree:.6f}")
     check(classes == [0, 1, 2], f"{net.model}: the CPU engine's masks carry both objects")
-    check(agree >= 0.98, f"{net.model}: card masks agree with the CPU engine on >= 98% of pixels")
+    check(agree >= gate, f"{net.model}: card masks agree with the CPU engine on >= {gate:.1%} of pixels")
     return agree
 
 
@@ -817,7 +845,6 @@ def propagate_path(torch, dev, net, work: Path, video: str, n: int):
     from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
     from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
     from semi_supervised_vos_tpu_torch.ops import affinity as aff
-    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block
     from semi_supervised_vos_tpu_torch.ops.onehot import index_to_onehot
     from semi_supervised_vos_tpu_torch.ops.resize import nearest_resize
 
@@ -833,8 +860,7 @@ def propagate_path(torch, dev, net, work: Path, video: str, n: int):
     label_small = nearest_resize(torch.as_tensor(label, device=dev)[:, :, None], (engine.hd, engine.wd))
     labels = [index_to_onehot(label_small.reshape(-1), cfg.num_classes)]
     masks = []
-    aff.affinity_from_bank_batched.launches = aff.affinity_propagate_fused.launches = 0
-    bottleneck_block.launches = 0
+    reset_kernel_launches()
     t0 = time.perf_counter()
     for t in range(1, n):
         idx, valid, dense = sample_frames(t, cfg.frame_range, cfg.ref_num)
@@ -847,13 +873,12 @@ def propagate_path(torch, dev, net, work: Path, video: str, n: int):
         labels.append(index_to_onehot(masks[-1], cfg.num_classes))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"affinity_bank": aff.affinity_from_bank_batched.launches,
-                "affinity_propagate": aff.affinity_propagate_fused.launches, "bottleneck": bottleneck_block.launches}
+    launches = kernel_launches()
     agree = (torch.stack(masks) == engine_masks).double().mean().item()
     classes = torch.unique(torch.stack(masks)).tolist()
     log(f"affinity_propagate_fused path: {n - 1} frames in {wall:.3f} s, launches {launches}, "
         f"mask classes {classes}, agreement with the engine's masks {agree:.6f}")
-    check(launches == {"affinity_bank": 0, "affinity_propagate": n - 1, "bottleneck": 0},
+    check(launches == launch_counts(affinity_propagate=n - 1),
           "one affinity_propagate_fused launch per propagated frame, no other kernel")
     check(classes == [0, 1, 2], "its masks carry both objects")
     check(agree >= 0.999, "its masks agree with the engine's on >= 99.9% of pixels")
@@ -882,17 +907,30 @@ def cli_run(torch, args):
     """One ``inference`` through the CLI with every launch count set to 0
     just before it: (seconds, {kernel: launches})."""
     from semi_supervised_vos_tpu_torch.__main__ import cli
-    from semi_supervised_vos_tpu_torch.ops import affinity as aff
-    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block
 
-    aff.affinity_from_bank_batched.launches = aff.affinity_propagate_fused.launches = 0
-    bottleneck_block.launches = 0
+    reset_kernel_launches()
     t0 = time.perf_counter()
     cli(args, standalone_mode=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return wall, {"affinity_bank": aff.affinity_from_bank_batched.launches,
-                  "affinity_propagate": aff.affinity_propagate_fused.launches, "bottleneck": bottleneck_block.launches}
+    return wall, kernel_launches()
+
+
+@contextlib.contextmanager
+def infer_dtype(dtype: str, **env):
+    """``SVOS_INFER_DTYPE`` (and any other variables given) set for the
+    enclosed CLI runs, restored after."""
+    env = {"SVOS_INFER_DTYPE": dtype, **env}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def check_outputs(save: Path, gt: Path, videos: dict, name: str) -> float:
@@ -932,8 +970,7 @@ def strategies_phase(torch, dev, work: Path, net, net2, n: int):
             args += ["--additional-model", str(ckpt2)]
         wall, launches = cli_run(torch, args)
         propagated = chunks * chunk if streams == 2 else n - 1
-        expect = {"affinity_bank": streams * propagated, "affinity_propagate": 0,
-                  "bottleneck": 11 * streams * (1 + chunks)}
+        expect = launch_counts(affinity_bank=streams * propagated, bottleneck=11 * streams * (1 + chunks))
         jf = check_outputs(save, tree / "Annotations" / "480p", {"clip": n}, name)
         log(f"strategy {name}: {n} frames in {wall:.3f} s = {n / wall:.3f} fps end to end, J&F {jf:.6f}, "
             f"launches {launches}")
@@ -1009,18 +1046,23 @@ def png_agreement(save_a: Path, save_b: Path, videos: dict, name: str) -> float:
     return same / total
 
 
-def lockstep_launches(engines, t_max: int) -> dict:
-    """Launches of one lockstep group whose engines are ``(frame_hw,
-    lanes)``: one bank-kernel launch per engine and step (the last chunk
-    padded to a whole chunk), 11 bottleneck launches per encode call (the
-    start, then each chunk's frames in calls of at most the lane cap)."""
+def lockstep_launches(engines, t_max: int, dtype: str = "bfloat16") -> dict:
+    """Launches of one lockstep group of resnet50 engines ``(frame_hw,
+    lanes)`` at the compute ``dtype`` (the kernels of that dtype): one
+    bank-kernel launch per engine and step (the last chunk padded to a whole
+    chunk), 11 bottleneck launches per encode call (the start, then each
+    chunk's frames in calls of at most the lane cap)."""
+    import torch
+
     from semi_supervised_vos_tpu_torch.infer.batched import _hbm_lanes_cap
     from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
 
     chunk = chunk_len()
     chunks = math.ceil((t_max - 1) / chunk)
-    encodes = sum(1 + chunks * math.ceil(chunk / max(1, _hbm_lanes_cap(hw) // b)) for hw, b in engines)
-    return {"affinity_bank": len(engines) * chunks * chunk, "affinity_propagate": 0, "bottleneck": 11 * encodes}
+    cap = {hw: _hbm_lanes_cap(hw, "resnet50", getattr(torch, dtype)) for hw, _ in engines}
+    encodes = sum(1 + chunks * math.ceil(chunk / max(1, cap[hw] // b)) for hw, b in engines)
+    suffix = "_f32" if dtype == "float32" else ""
+    return launch_counts(**{f"affinity_bank{suffix}": len(engines) * chunks * chunk, f"bottleneck{suffix}": 11 * encodes})
 
 
 # (name, CLI flags, engines as (input scale, lanes per video)) of the 10b
@@ -1242,13 +1284,13 @@ def lockstep_kernels(torch, dev, rng):
     return res
 
 
-def lockstep_memory(torch, dev, net, work: Path, slopes: bool = True):
-    """10d (and 12d for facebook): peak device memory of one chunk
-    (start_videos + one 8-step chunk) at 480p (B = 1, 8) and 1080p (B = 1,
-    2), the bytes per lane (with ``slopes``), and one chunk at
-    ``_hbm_lanes_cap`` lanes for ``net``'s model at each resolution, which
-    must stay under 85 % of the card's memory (the anchors of
-    ``infer/batched.py`` aim it at 70 %)."""
+def lockstep_memory(torch, dev, net, work: Path, slopes: bool = True, dtype=None):
+    """10d (12d for facebook, 14e at float32): peak device memory of one
+    chunk (start_videos + one 8-step chunk) at 480p (B = 1, 8) and 1080p
+    (B = 1, 2), the bytes per lane (with ``slopes``), and one chunk at
+    ``_hbm_lanes_cap`` lanes for ``net``'s model and the compute ``dtype``
+    (None: bf16) at each resolution, which must stay under 85 % of the
+    card's memory (the anchors of ``infer/batched.py`` aim it at 70 %)."""
     from semi_supervised_vos_tpu_torch.infer.batched import BatchedPropagationEngine, _hbm_lanes_cap
     from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig
     from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
@@ -1265,7 +1307,7 @@ def lockstep_memory(torch, dev, net, work: Path, slopes: bool = True):
 
     def peak(hw, b):
         frames, label = clip(hw)
-        engine = BatchedPropagationEngine(net, hw, b, EngineConfig(), dev)
+        engine = BatchedPropagationEngine(net, hw, b, EngineConfig(compute_dtype=dtype), dev)
         lanes = np.broadcast_to(frames[:, None], (frames.shape[0], b) + frames.shape[1:])
         labels = np.broadcast_to(label[None], (b,) + label.shape)
         torch.cuda.synchronize()
@@ -1284,7 +1326,7 @@ def lockstep_memory(torch, dev, net, work: Path, slopes: bool = True):
 
     res = {}
     for name, hw, bs in (("480p", (H480, W480), (1, 8)), ("1080p", (H1080, W1080), (1, 2))):
-        lanes = _hbm_lanes_cap(hw, net.model)
+        lanes = _hbm_lanes_cap(hw, net.model, dtype or torch.bfloat16)
         cap_used, cap_top = peak(hw, lanes)
         share = cap_top / total
         # at the cap an encode call takes one step of every lane, so the
@@ -1300,7 +1342,7 @@ def lockstep_memory(torch, dev, net, work: Path, slopes: bool = True):
             msg = (f"one chunk B={bs[0]} {used[bs[0]] / 1e9:.4f} GB, B={bs[1]} {used[bs[1]] / 1e9:.4f} GB, "
                    f"{per_lane / 1e9:.4f} GB per added lane; " + msg)
             res[name].update(bytes_b1=used[bs[0]], bytes_b2_or_b8=used[bs[1]], bytes_per_lane=per_lane)
-        log(f"lockstep memory {net.model} {name}: " + msg)
+        log(f"lockstep memory {net.model} {name} {dtype or torch.bfloat16}: " + msg)
         check(share < 0.85, f"{net.model} {name}: one chunk at {lanes} lanes peaks under 85% of the card's memory")
     res["total_bytes"] = total
     return res
@@ -1326,12 +1368,24 @@ CARD_VS_CPU_LOSS_RTOL = 1e-4
 CARD_VS_CPU_MIN_COS = 0.99999
 
 
+LAUNCH_KEYS = ("affinity_bank", "affinity_propagate", "bottleneck", "affinity_bank_f32", "bottleneck_f32")
+
+
 def kernel_launches():
+    """Every kernel's launch count: the bf16 bank kernel, kernel 3 (on the
+    same source), the bf16 bottleneck and the two float32 variants."""
     from semi_supervised_vos_tpu_torch.ops import affinity as aff
     from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block
 
     return {"affinity_bank": aff.affinity_from_bank_batched.launches,
-            "affinity_propagate": aff.affinity_propagate_fused.launches, "bottleneck": bottleneck_block.launches}
+            "affinity_propagate": aff.affinity_propagate_fused.launches, "bottleneck": bottleneck_block.launches,
+            "affinity_bank_f32": aff.affinity_from_bank_batched.launches_f32,
+            "bottleneck_f32": bottleneck_block.launches_f32}
+
+
+def launch_counts(**counts) -> dict:
+    """Expected launch counts: the named ones, 0 for every other kernel."""
+    return {key: counts.get(key, 0) for key in LAUNCH_KEYS}
 
 
 def reset_kernel_launches():
@@ -1340,6 +1394,7 @@ def reset_kernel_launches():
 
     aff.affinity_from_bank_batched.launches = aff.affinity_propagate_fused.launches = 0
     bottleneck_block.launches = 0
+    aff.affinity_from_bank_batched.launches_f32 = bottleneck_block.launches_f32 = 0
 
 
 def conv_flops(torch, net, x) -> float:
@@ -1469,8 +1524,7 @@ def training_cli(torch, work: Path):
     check(sorted(val) == names and all(math.isfinite(v) for v in val.values()), "validation: a finite loss a checkpoint")
     check(abs(val[epochs[0]] - val_in_name) <= 1e-3 * abs(val_in_name),
           "validation CLI on epoch 0's checkpoint reproduces the train CLI's epoch-0 validation loss to 1e-3")
-    check(launches == {"affinity_bank": 0, "affinity_propagate": 0, "bottleneck": 0},
-          "no hand-written kernel runs on the training path")
+    check(launches == launch_counts(), "no hand-written kernel runs on the training path")
     pred = work / "train_pred"
     t0 = time.perf_counter()
     cli(["inference", "-d", str(tree), "-r", str(ckpts / epochs[-1]), "-s", str(pred)], standalone_mode=False)
@@ -1567,8 +1621,8 @@ def facebook_multimodel(torch, work: Path, n: int):
             "--additional-model-type", "facebook"]
     wall, launches = cli_run(torch, args)
     chunks = math.ceil((n - 1) / chunk_len())
-    expect = {"affinity_bank": 2 * chunks * chunk_len(), "affinity_propagate": 0,
-              "bottleneck": sum(BOTTLENECK_LAUNCHES.values()) * (1 + chunks)}
+    expect = launch_counts(affinity_bank=2 * chunks * chunk_len(),
+                           bottleneck=sum(BOTTLENECK_LAUNCHES.values()) * (1 + chunks))
     jf = check_outputs(save, tree / "Annotations" / "480p", {"clip": n}, "multimodel resnet50 + facebook")
     log(f"multimodel resnet50 + facebook: {n} frames in {wall:.3f} s = {n / wall:.3f} fps end to end, J&F {jf:.6f}, "
         f"launches {launches}")
@@ -1711,7 +1765,7 @@ def sharded_engine(torch, dev, net, work: Path, videos: dict, n: int = 4):
     encodes = sum(1 + math.ceil((t - 1) / chunk_len()) for t in videos.values())
     log(f"13b sharded engine, {n} bank shards of {sharded.p_loc} rows: launches {launches}, mask agreement with the "
         f"single engine {agree:.7f}")
-    check(launches == {"affinity_bank": n * propagated, "affinity_propagate": 0, "bottleneck": 11 * encodes},
+    check(launches == launch_counts(affinity_bank=n * propagated, bottleneck=11 * encodes),
           f"{n} bank-kernel launches per propagated frame ({n} x {propagated}), 11 bottleneck launches per encode")
     check(agree >= 0.995, "sharded engine masks agree with the single engine on >= 99.5% of pixels")
     frames, label = clips["long"]
@@ -1733,10 +1787,12 @@ def sharded_engine(torch, dev, net, work: Path, videos: dict, n: int = 4):
                 single_ms_per_frame=ms["single"], sharded_ms_per_frame=ms["sharded"])
 
 
-def mesh_lockstep(torch, dev, work: Path, videos: dict, n_data: int = 2, n_bank: int = 2, video_batch: int = 3):
-    """13c: the lockstep runner (``infer/batched.py::inference_batched``)
-    over a dp ``n_data`` x bank ``n_bank`` mesh at ``video_batch`` videos a
-    group (groups of 3 pad to 4 videos over the two data rows), against
+def mesh_lockstep(torch, dev, work: Path, videos: dict, n_data: int = 2, n_bank: int = 2, video_batch: int = 3,
+                  dtype: str = "bfloat16"):
+    """13c (14e at float32): the lockstep runner
+    (``infer/batched.py::inference_batched``) over a dp ``n_data`` x bank
+    ``n_bank`` mesh at ``video_batch`` videos a group (groups of 3 pad to 4
+    videos over the two data rows) at the compute ``dtype``, against
     ``--video-batch`` of the one-card engine through the CLI."""
     from semi_supervised_vos_tpu_torch.data.davis import InferenceDataset
     from semi_supervised_vos_tpu_torch.infer import batched
@@ -1746,17 +1802,18 @@ def mesh_lockstep(torch, dev, work: Path, videos: dict, n_data: int = 2, n_bank:
     from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
 
     tree, ckpt = work / "lockstep", work / "resnet50.pth.tar"
-    save_one = work / "mesh_vb_one_card"
-    cli_run(torch, ["inference", "-d", str(tree), "-r", str(ckpt), "-s", str(save_one), "--video-batch",
-                    str(video_batch)])
+    save_one = work / f"mesh_vb_one_card_{dtype}"
+    with infer_dtype(dtype):
+        cli_run(torch, ["inference", "-d", str(tree), "-r", str(ckpt), "-s", str(save_one), "--video-batch",
+                        str(video_batch)])
     net = load_torch_checkpoint(ckpt, VOSNet("resnet50"))
     dataset = InferenceDataset(str(tree / "JPEGImages" / "480p"), inference_strategy="single")
-    save = work / "mesh_vb"
+    save = work / f"mesh_vb_{dtype}"
     mesh = virtual_mesh(torch, dev, n_data, n_bank)
     reset_kernel_launches()
     t0 = time.perf_counter()
-    batched.inference_batched(dataset, tree / "Annotations" / "480p", save, net, EngineConfig(), dev, video_batch,
-                              mesh=mesh)
+    batched.inference_batched(dataset, tree / "Annotations" / "480p", save, net,
+                              EngineConfig(compute_dtype=getattr(torch, dtype)), dev, video_batch, mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_launches()
@@ -1768,14 +1825,16 @@ def mesh_lockstep(torch, dev, work: Path, videos: dict, n_data: int = 2, n_bank:
         t_max = max(videos[v] for v in g)
         steps = math.ceil((t_max - 1) / chunk) * chunk
         per_row = -(-len(g) // n_data)
-        calls_per_chunk = math.ceil(chunk / max(1, batched._hbm_lanes_cap((H480, W480)) // per_row))
+        calls_per_chunk = math.ceil(chunk / max(1, batched._hbm_lanes_cap((H480, W480), "resnet50",
+                                                                          getattr(torch, dtype)) // per_row))
         bank += steps * n_data * n_bank
         bottleneck += 11 * n_data * (1 + math.ceil((t_max - 1) / chunk) * calls_per_chunk)
     agree = png_agreement(save, save_one, videos, "mesh lockstep")
-    log(f"13c lockstep over dp {n_data} x bank {n_bank} (virtual mesh), --video-batch {video_batch} on "
+    suffix = "_f32" if dtype == "float32" else ""
+    log(f"lockstep over dp {n_data} x bank {n_bank} (virtual mesh), {dtype}, --video-batch {video_batch} on "
         f"{len(videos)} videos ({len(groups)} groups): {wall:.3f} s, launches {launches}, mask agreement with the "
         f"one-card --video-batch {video_batch} {agree:.7f}")
-    check(launches == {"affinity_bank": bank, "affinity_propagate": 0, "bottleneck": bottleneck},
+    check(launches == launch_counts(**{f"affinity_bank{suffix}": bank, f"bottleneck{suffix}": bottleneck}),
           f"mesh lockstep: {n_data * n_bank} bank-kernel launches per step ({bank}), {bottleneck} bottleneck launches")
     check(agree >= 0.995, "mesh lockstep masks agree with the one-card lockstep engine on >= 99.5% of pixels")
     return dict(launches=launches, agreement=agree, seconds=wall, groups=len(groups))
@@ -1821,6 +1880,323 @@ def mesh_phase(torch, dev, rng, work: Path, net, videos: dict, lockstep_videos: 
     """Phase 13: multi-device inference on a virtual one-card mesh."""
     return {"kernels": sharded_kernels(torch, dev, rng), "engine": sharded_engine(torch, dev, net, work, videos),
             "lockstep": mesh_lockstep(torch, dev, work, lockstep_videos), "cli": mesh_cli(torch, work)}
+
+
+# ---- phase 14: float32 inference (SVOS_INFER_DTYPE=float32) ----------------
+
+
+def f32_bank_kernel(torch, dev, rng):
+    """14a: the float32 bank kernel (``csrc/affinity_bank_f32.cu``) against
+    its plain version at 480p (K 9, P 6420, C 256, float32 bank, bf16
+    labels): B = 1 with the prior and in probability mode, B = 8 lane by
+    lane, a ragged P and K = 1; four float32 stats shards combined against
+    the unsharded kernel; timed against the FP32 bound, and in probability
+    mode beside float32 ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from semi_supervised_vos_tpu_torch.core.sampling import sample_frames
+    from semi_supervised_vos_tpu_torch.ops import affinity as aff
+    from semi_supervised_vos_tpu_torch.parallel.sharded_affinity import distributed_softmax_combine
+
+    c, d, d_pad, cap, k, hd, wd = 256, 22, 24, 45, 9, 60, 107
+    p = hd * wd
+    idx, valid, dense = sample_frames(50, 40, k)
+    slots = idx % cap
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+
+    def make(b, p):
+        feats = torch.randn((cap, b, p, c), generator=gen, device=dev) * 0.2
+        labels = F.one_hot(torch.randint(0, d, (cap, b, p), generator=gen, device=dev), d_pad).to(torch.bfloat16)
+        return feats, labels, torch.randn((b, p, c), generator=gen, device=dev) * 0.2
+
+    def compare(name, got, expect, gate=AFFINITY_GATE):
+        got, expect = got[..., :d, :], expect[..., :d, :]
+        max_abs = (got - expect).abs().max().item()
+        agree = (got.argmax(-2) == expect.argmax(-2)).double().mean().item()
+        log(f"14a float32 bank kernel {name}: max_abs={max_abs:.3e} argmax_agreement={agree}")
+        check(max_abs <= gate and agree == 1.0, f"float32 bank kernel {name} <= {gate} / 1.0")
+        return max_abs
+
+    feats8, labels8, tgt8 = make(8, p)
+    feats, labels, tgt = feats8[:, :1].contiguous(), labels8[:, :1].contiguous(), tgt8[:1].contiguous()
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense)
+    before = aff.affinity_from_bank_batched.launches
+    worst = 0.0
+    for spatial in (True, False):
+        got = aff.affinity_from_bank_batched(feats, labels, tgt, slots, spatial=spatial, **kw)
+        expect = aff.affinity_from_bank_plain(feats, labels, tgt, slots, spatial=spatial, **kw)
+        worst = max(worst, compare(f"480p B=1 {'prior on' if spatial else 'probability mode'}", got, expect))
+    got8 = aff.affinity_from_bank_batched(feats8, labels8, tgt8, slots, **kw)
+    expect8 = torch.cat([aff.affinity_from_bank_plain(feats8[:, i : i + 1], labels8[:, i : i + 1], tgt8[i : i + 1],
+                                                      slots, **kw) for i in range(8)])
+    worst = max(worst, compare("480p B=8", got8, expect8))
+    del expect8
+    for name, (eh, ew), eslots, evalid, edense in (("13x27 ragged P", (13, 27), slots, valid, dense),
+                                                   ("K=1", (16, 20), slots[:1], [True], [True])):
+        fe, la, ta = make(1, eh * ew)
+        ekw = dict(feature_hw=(eh, ew), temperature=1.0, valid=evalid, dense=edense)
+        worst = max(worst, compare(name, aff.affinity_from_bank_batched(fe, la, ta, eslots, **ekw),
+                                   aff.affinity_from_bank_plain(fe, la, ta, eslots, **ekw)))
+    check(aff.affinity_from_bank_batched.launches == before, "float32 banks launch no bf16 bank kernel")
+
+    # four float32 stats shards of 1605 rows, combined
+    n = 4
+    p_loc = -(-p // n)
+    shards = [(feats[:, :, s * p_loc : (s + 1) * p_loc].contiguous(), labels[:, :, s * p_loc : (s + 1) * p_loc]
+               .contiguous()) for s in range(n)]
+
+    def run_sharded():
+        stats = [aff.affinity_from_bank_batched(f, lab, tgt, slots, row_base=s * p_loc, return_stats=True, **kw)
+                 for s, (f, lab) in enumerate(shards)]
+        return distributed_softmax_combine(*zip(*stats))
+
+    whole = aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw)
+    compare(f"{n} stats shards + combine vs the unsharded kernel", run_sharded(), whole, STATS_GATE)
+
+    # times at 480p, beside the FP32 bound and the plain version
+    _, inv_sigma2, _ = aff.slot_table(slots, valid, dense, 8.0, 21.0, True)
+    nbytes = k * p * (c * 4 + d_pad * 2) + p * c * 4 + d_pad * p * 4
+    b_ms, b_by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes, PEAK_F32_FLOPS)
+    prob_b_ms, prob_b_by = affinity_bound(torch, dev, k, p, wd, c, d, np.zeros(k), nbytes, PEAK_F32_FLOPS)
+    ms = time_ms(lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw))
+    plain_ms = time_ms(lambda: aff.affinity_from_bank_plain(feats, labels, tgt, slots, **kw))
+    b8_ms = time_ms(lambda: aff.affinity_from_bank_batched(feats8, labels8, tgt8, slots, **kw), reps=10)
+    sharded_ms = time_ms(run_sharded)
+    prob_ms = time_ms(lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, spatial=False, **kw))
+    # probability mode: float32 attention over the valid slots' rows
+    sel = torch.as_tensor(slots[valid], device=dev)
+    q, keys = tgt[:, None], feats[sel, 0].reshape(1, 1, -1, c)
+    values = labels[sel, 0].float().reshape(1, 1, -1, d_pad)
+    run_library = lambda: F.scaled_dot_product_attention(q, keys, values, scale=1.0)  # noqa: E731
+    expect = aff.affinity_from_bank_plain(feats, labels, tgt, slots, spatial=False, **kw)[0, :d]
+    sdpa_err = (run_library()[0, 0, :, :d].T - expect).abs().max().item()
+    check(sdpa_err <= SDPA_GATE, f"float32 scaled_dot_product_attention agrees with the plain version <= {SDPA_GATE}")
+    library_ms = time_ms(run_library)
+    log(f"14a float32 bank kernel 480p: B=1 {ms:.4f} ms, plain {plain_ms:.4f} ms, FP32 bound {b_ms:.4f} ms ({b_by}); "
+        f"B=8 {b8_ms:.4f} ms; {n} stats shards + combine {sharded_ms:.4f} ms; probability mode {prob_ms:.4f} ms, "
+        f"float32 scaled_dot_product_attention {library_ms:.4f} ms (max_abs vs plain {sdpa_err:.3e}), bound "
+        f"{prob_b_ms:.4f} ms; kernel / library {prob_ms / library_ms:.3f}")
+    del feats8, labels8, tgt8, got8
+    return dict(max_abs_err=worst, **timing_keys("ms", ms), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, b8_ms=b8_ms, b8_bound_ms=8 * b_ms, stats4_ms=sharded_ms, prob_ms=prob_ms,
+                prob_bound_ms=prob_b_ms, prob_bound_by=prob_b_by, prob_library_ms=library_ms)
+
+
+def f32_bottleneck_kernel(torch, dev, rng):
+    """14b: the float32 bottleneck kernel (``csrc/bottleneck_f32.cu``)
+    against its plain version (TF32 off) at both 480p geometries, 8 and 64
+    frames, timed beside three float32 cuDNN convolutions (TF32 off); the
+    per-call sums are those of one resnet50 encode call (3 blocks at C 512,
+    8 at C 1024)."""
+    import torch.nn.functional as F
+
+    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block, bottleneck_block_plain
+
+    def library_block(x, k1, b1, k2, b2, k3, b3):
+        y = torch.relu(F.conv2d(x, k1, b1))
+        y = torch.relu(F.conv2d(y, k2, b2, padding=1))
+        return torch.relu(F.conv2d(y, k3, b3) + x)
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "14b runs with TF32 off")
+    h, w = 60, 107
+    worst = 0.0
+    per_call = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for n in (8, 64)}
+    by = None
+    before = bottleneck_block.launches
+    for cc, c4, blocks in ((512, 128, 3), (1024, 256, 8)):
+        for n in (8, 64):
+            x = torch.as_tensor(rng.standard_normal((n, h, w, cc)), dtype=torch.float32).to(dev)
+            shapes = [(cc, c4), (c4,), (3, 3, c4, c4), (c4,), (c4, cc), (cc,)]
+            scales = [math.sqrt(2 / cc), 0.1, math.sqrt(2 / (9 * c4)), 0.1, math.sqrt(2 / c4), 0.1]
+            wts = [torch.as_tensor(rng.standard_normal(sh) * sc, dtype=torch.float32).to(dev)
+                   for sh, sc in zip(shapes, scales)]
+            got = bottleneck_block(x, *wts)
+            expect = bottleneck_block_plain(x, *wts)
+            rel = ((got - expect).abs().max() / expect.abs().max()).item()
+            worst = max(worst, (got - expect).abs().max().item())
+            del got, expect
+            xl = x.permute(0, 3, 1, 2)
+            lib = [wts[0].t()[:, :, None, None].contiguous(memory_format=torch.channels_last), wts[1],
+                   wts[2].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last), wts[3],
+                   wts[4].t()[:, :, None, None].contiguous(memory_format=torch.channels_last), wts[5]]
+            reps = 20 if n == 8 else 5
+            ms = time_ms(lambda: bottleneck_block(x, *wts), reps=reps)
+            plain_ms = time_ms(lambda: bottleneck_block_plain(x, *wts), reps=reps)
+            library_ms = time_ms(lambda: library_block(xl, *lib), reps=reps)
+            ops = 2.0 * n * h * w * (cc * c4 + 9 * c4 * c4 + c4 * cc)
+            nbytes = 4 * (2 * n * h * w * cc + 2 * cc * c4 + 9 * c4 * c4 + 2 * c4 + cc)
+            b_ms, b_by = bound(ops, nbytes, peak=PEAK_F32_FLOPS)
+            by = b_by if (cc, n) == (1024, 8) else by
+            log(f"14b float32 bottleneck N={n} C={cc} C4={c4}: max_abs/max_ref={rel:.3e}; kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, three float32 cuDNN convolutions {library_ms:.4f} ms, FP32 bound "
+                f"{b_ms:.4f} ms ({b_by})")
+            check(rel <= 1e-4, f"float32 bottleneck N={n} C={cc}: max error <= 1e-4 of the largest output")
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms), ("bound_ms", b_ms)):
+                per_call[n][key] += blocks * v
+            del x, xl
+    check(bottleneck_block.launches == before, "float32 activations launch no bf16 bottleneck kernel")
+    c8, c64 = per_call[8], per_call[64]
+    log(f"14b float32 bottleneck per resnet50 encode call (11 launches): N=8 kernel {c8['ms']:.4f} ms, plain "
+        f"{c8['plain_ms']:.4f} ms, library {c8['library_ms']:.4f} ms, FP32 bound {c8['bound_ms']:.4f} ms; N=64 kernel "
+        f"{c64['ms']:.4f} ms, library {c64['library_ms']:.4f} ms, bound {c64['bound_ms']:.4f} ms; kernel / library "
+        f"{c8['ms'] / c8['library_ms']:.3f} (N=8), {c64['ms'] / c64['library_ms']:.3f} (N=64)")
+    return dict(max_abs_err=worst, bound_by=by, **c8, n64_ms=c64["ms"], n64_library_ms=c64["library_ms"],
+                n64_bound_ms=c64["bound_ms"])
+
+
+def f32_encoder(torch, dev, arch: str, frame_u8) -> float:
+    """14c: the BN-folded float32 encoder on the card (the float32 bottleneck
+    kernel, 11 launches for resnet50 and 8 for facebook, nothing of the bf16
+    kernel) against the float32 module on the CPU, one 480x854 frame, with
+    the JAX package's recipe (perturbed BN statistics): min per-pixel cosine
+    >= 0.99999."""
+    from semi_supervised_vos_tpu_torch.infer.engine import IMAGENET_MEAN, IMAGENET_STD
+    from semi_supervised_vos_tpu_torch.models.fold import fold_vosnet
+    from semi_supervised_vos_tpu_torch.models.infer_fast import fast_encode
+
+    net = random_vosnet(torch, 0, arch)
+    x = torch.tensor(frame_u8[None]).float() / 255.0
+    x = (x - torch.as_tensor(IMAGENET_MEAN)) / torch.as_tensor(IMAGENET_STD)
+    with torch.no_grad():
+        ref = net(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        net.to(dev)
+        table = fold_vosnet(net, torch.float32)
+        reset_kernel_launches()
+        fast = fast_encode(table, x.to(dev), torch.float32, arch=arch).cpu()
+        launches = kernel_launches()
+    cos = torch.nn.functional.cosine_similarity(fast.reshape(-1, 256), ref.reshape(-1, 256), dim=-1).min().item()
+    log(f"14c float32 encoder {arch} 480x854 on the card vs the float32 module on the CPU: min per-pixel cosine "
+        f"{cos:.7f}, launches {launches}")
+    check(bool(torch.isfinite(fast).all()) and cos >= 0.99999, f"{arch} float32 encoder min cosine >= 0.99999")
+    check(launches == launch_counts(bottleneck_f32=BOTTLENECK_LAUNCHES[arch]),
+          f"{BOTTLENECK_LAUNCHES[arch]} float32 bottleneck launches per {arch} encode, no bf16 kernel")
+    return cos
+
+
+def f32_main_path(torch, dev, work: Path, net, videos: dict, bf16: dict):
+    """14d: ``inference`` under ``SVOS_INFER_DTYPE=float32`` on the main
+    path's tree (only the float32 kernels launch), its masks beside phase
+    7's bf16 masks; fps and the engine's device ms per frame beside bf16's
+    (``bf16``, measured earlier in this run); card vs CPU masks on the small
+    clip (>= 0.995), with bf16's figure beside."""
+    from PIL import Image
+
+    from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
+
+    save = work / "pred_f32"
+    with infer_dtype("float32"):
+        wall, launches = cli_run(torch, ["inference", "-d", str(work / "davis"), "-r", str(work / "resnet50.pth.tar"),
+                                         "-s", str(save)])
+    n_frames = sum(videos.values())
+    encodes = sum(1 + math.ceil((n - 1) / chunk_len()) for n in videos.values())
+    vs_bf16 = png_agreement(save, work / "pred_resnet50", videos, "float32 main path")
+    for video, n in videos.items():
+        classes = sorted(set().union(*(np.unique(np.asarray(Image.open(save / video / f"{t:05d}.png"))).tolist()
+                                       for t in range(1, n))))
+        check(classes == [0, 1, 2], f"float32 main path {video}: the predicted masks carry both objects ({classes})")
+    log(f"14d float32 main path: {n_frames} frames in {wall:.3f} s = {n_frames / wall:.3f} fps end to end (bf16 "
+        f"{bf16['fps']:.3f}), masks agree with bf16's on {vs_bf16:.6f} of pixels, launches {launches}")
+    check(launches == launch_counts(affinity_bank_f32=n_frames - len(videos), bottleneck_f32=11 * encodes),
+          f"float32 main path: {n_frames - len(videos)} float32 bank and {11 * encodes} float32 bottleneck "
+          "launches, none of the bf16 kernels")
+    ms = engine_timing(torch, dev, net, work, "long", videos["long"], torch.float32)
+    agree = small_clip_parity(torch, dev, net, work, torch.float32, gate=0.995)
+    log(f"14d float32 engine {ms:.4f} ms/frame against bf16 {bf16['engine_ms']:.4f}; card vs CPU masks {agree:.6f} "
+        f"(bf16 {bf16['card_vs_cpu']:.6f})")
+    return dict(fps=n_frames / wall, seconds=wall, agreement_with_bf16=vs_bf16, launches=launches,
+                engine_ms_per_frame=ms, card_vs_cpu_agreement=agree, bf16_fps=bf16["fps"],
+                bf16_engine_ms_per_frame=bf16["engine_ms"], bf16_card_vs_cpu_agreement=bf16["card_vs_cpu"])
+
+
+def f32_lockstep(torch, dev, work: Path, net, videos: dict):
+    """14e: ``--video-batch 8`` under ``SVOS_INFER_DTYPE=float32`` on the
+    lockstep tree (one float32 bank-kernel launch a step) against
+    ``--video-batch 1``; one resnet50 chunk at the float32 lane cap at 480p
+    and 1080p under 85 % of the card (facebook's float32 anchors:
+    ``prof_torch/lane_caps.py``); dp 2 x bank 2 on the virtual mesh at
+    float32."""
+    tree, ckpt = work / "lockstep", work / "resnet50.pth.tar"
+    saves = {vb: work / f"lockstep_f32_vb{vb}" for vb in (8, 1)}
+    walls, launches = {}, {}
+    with infer_dtype("float32"):
+        for vb, save in saves.items():
+            walls[vb], launches[vb] = cli_run(torch, ["inference", "-d", str(tree), "-r", str(ckpt), "-s", str(save),
+                                                      "--video-batch", str(vb)])
+    expect = lockstep_launches([((H480, W480), 8)], max(videos.values()), "float32")
+    agree = png_agreement(saves[8], saves[1], videos, "float32 --video-batch 8 vs 1")
+    n_frames = sum(videos.values())
+    log(f"14e float32 --video-batch 8: {n_frames} frames in {walls[8]:.3f} s = {n_frames / walls[8]:.3f} fps "
+        f"(--video-batch 1 {n_frames / walls[1]:.3f} fps), launches {launches[8]}, mask agreement with --video-batch 1 "
+        f"{agree:.7f}")
+    check(launches[8] == expect, f"float32 --video-batch 8: launches {expect}")
+    check(agree >= 0.999, "float32 --video-batch 8 masks agree with --video-batch 1 on >= 99.9% of pixels")
+    res = dict(fps_vb8=n_frames / walls[8], fps_vb1=n_frames / walls[1], launches_vb8=launches[8], agreement=agree)
+    res["memory"] = lockstep_memory(torch, dev, net, work, slopes=False, dtype=torch.float32)
+    res["mesh"] = mesh_lockstep(torch, dev, work, videos, dtype="float32")
+    return res
+
+
+def fast_encoder_off(torch, work: Path, n: int):
+    """14f: ``SVOS_FAST_ENCODER=0`` under float32 on the strategies' clip:
+    the module encodes (no bottleneck launch), and the masks agree with the
+    fast encoder's on >= 99.9 % of pixels."""
+    tree, ckpt = work / "strategies", work / "resnet50.pth.tar"
+    runs = {}
+    for fast in ("1", "0"):
+        save = work / f"f32_fast_encoder_{fast}"
+        with infer_dtype("float32", SVOS_FAST_ENCODER=fast):
+            wall, launches = cli_run(torch, ["inference", "-d", str(tree), "-r", str(ckpt), "-s", str(save)])
+        runs[fast] = dict(save=save, seconds=wall, launches=launches)
+    agree = png_agreement(runs["0"]["save"], runs["1"]["save"], {"clip": n}, "SVOS_FAST_ENCODER=0")
+    log(f"14f SVOS_FAST_ENCODER=0 (float32): {runs['0']['seconds']:.3f} s, launches {runs['0']['launches']}; fast "
+        f"encoder {runs['1']['seconds']:.3f} s; mask agreement {agree:.7f}")
+    check(runs["0"]["launches"] == launch_counts(affinity_bank_f32=n - 1),
+          "SVOS_FAST_ENCODER=0: no bottleneck launch, one float32 bank launch a frame")
+    check(agree >= 0.999, "SVOS_FAST_ENCODER=0 masks agree with the fast encoder's on >= 99.9% of pixels")
+    return dict(launches=runs["0"]["launches"], agreement=agree, seconds=runs["0"]["seconds"],
+                fast_seconds=runs["1"]["seconds"])
+
+
+def profiling_run(torch, work: Path):
+    """14g: ``SVOS_PROFILE=1`` and ``SVOS_TRACE_DIR`` under float32 on the
+    strategies' clip: the phase report is logged, and the trace names both
+    float32 kernels."""
+    import logging
+
+    tree, trace_dir = work / "strategies", work / "trace"
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    logging.getLogger("svos_torch").addHandler(handler)
+    try:
+        with infer_dtype("float32", SVOS_PROFILE="1", SVOS_TRACE_DIR=str(trace_dir)):
+            wall, launches = cli_run(torch, ["inference", "-d", str(tree), "-r", str(work / "resnet50.pth.tar"),
+                                             "-s", str(work / "f32_profiled")])
+    finally:
+        logging.getLogger("svos_torch").removeHandler(handler)
+    report = [r for r in records if r.startswith("phase timing |")]
+    traces = sorted(trace_dir.glob("*.json"))
+    text = traces[0].read_text() if traces else ""
+    kernels = {name: name in text for name in ("affinity_bank_f32_kernel", "bottleneck_f32_kernel")}
+    log(f"14g SVOS_PROFILE / SVOS_TRACE_DIR: {wall:.3f} s; report {report}; trace files "
+        f"{[t.name for t in traces]} ({len(text) / 1e6:.1f} MB), kernels named {kernels}")
+    check(len(report) == 1 and "chunk_dispatch" in report[0] and "chunk_sync" in report[0],
+          "SVOS_PROFILE logs the chunk_dispatch / chunk_sync report")
+    check(len(traces) == 1 and all(kernels.values()), "SVOS_TRACE_DIR writes one trace naming both float32 kernels")
+    return dict(report=report[0], trace_bytes=len(text), seconds=wall)
+
+
+def float32_phase(torch, dev, rng, work: Path, net, videos: dict, lockstep_videos: dict, bf16: dict):
+    """Phase 14: float32 inference on the card (``SVOS_INFER_DTYPE=float32``)."""
+    frames, _ = load_video(work, "davis", "long", 1)
+    res = {"bank": f32_bank_kernel(torch, dev, rng), "bottleneck": f32_bottleneck_kernel(torch, dev, rng)}
+    res["encoder_min_cosine"] = {arch: f32_encoder(torch, dev, arch, frames[0]) for arch in ("resnet50", "facebook")}
+    res["main_path"] = f32_main_path(torch, dev, work, net, videos, bf16)
+    res["lockstep"] = f32_lockstep(torch, dev, work, net, lockstep_videos)
+    res["fast_encoder_off"] = fast_encoder_off(torch, work, STRATEGY_FRAMES)
+    res["profiling"] = profiling_run(torch, work)
+    return res
 
 
 def main() -> int:
@@ -1876,7 +2252,7 @@ def main() -> int:
         net = calibrated_vosnet(torch, dev, 0, frames)
         launches, fps, jf = main_path_phase(torch, dev, work, net, videos)
         engine_ms = engine_timing(torch, dev, net, work, "long", videos["long"])
-        small_clip_parity(torch, dev, net, work)
+        card_vs_cpu = small_clip_parity(torch, dev, net, work)
         twenty_refs_run(torch, work, videos)
         make_davis_tree(work / "strategies", {"clip": STRATEGY_FRAMES}, (H480, W480), seed=2)
         prop_launches = propagate_path(torch, dev, net, work, "clip", STRATEGY_FRAMES)
@@ -1898,6 +2274,9 @@ def main() -> int:
         facebook = facebook_phase(torch, dev, work, videos)
         stage("phase 13: multi-device inference on a virtual one-card mesh")
         mesh = mesh_phase(torch, dev, rng, work, net, videos, lockstep_videos)
+        stage("phase 14: float32 inference (SVOS_INFER_DTYPE=float32)")
+        bf16 = dict(fps=fps, engine_ms=engine_ms, card_vs_cpu=card_vs_cpu)
+        f32 = float32_phase(torch, dev, rng, work, net, videos, lockstep_videos, bf16)
     stage("summary")
     log(f"main path on {card}: {fps:.3f} fps end to end (CLI, decode and PNG writes included), "
         f"{engine_ms:.4f} ms/frame on the device (decoded frames), J&F {jf:.6f}")
@@ -1924,10 +2303,19 @@ def main() -> int:
         f"ms/frame against the single engine's {me['single_ms_per_frame']:.4f}, mask agreement {me['agreement']:.7f}; "
         f"dp 2 x bank 2 lockstep agreement {mesh['lockstep']['agreement']:.7f}; CLI: {mesh['cli']['case']}")
 
-    # launches: the main path's (kernel 3: its own path's); launches_by_path:
-    # each strategy's run; prob_*: probability mode at 480p, where
-    # scaled_dot_product_attention computes the same function
-    by_path = {k: {name: r["launches"][k] for name, r in strategies.items()} for k in ("affinity_bank", "bottleneck")}
+    f32m, f32l = f32["main_path"], f32["lockstep"]
+    log(f"float32 on {card}: main path {f32m['fps']:.3f} fps end to end (bf16 {fps:.3f}), engine "
+        f"{f32m['engine_ms_per_frame']:.4f} ms/frame (bf16 {engine_ms:.4f}), card vs CPU masks "
+        f"{f32m['card_vs_cpu_agreement']:.6f} (bf16 {card_vs_cpu:.6f}); --video-batch 8 {f32l['fps_vb8']:.3f} fps; "
+        f"bank kernel {f32['bank']['ms']:.4f} ms at 480p (bf16 {aff['ms']:.4f}), bottleneck {f32['bottleneck']['ms']:.4f} "
+        f"ms per 8-frame encode call (bf16 {bott['ms']:.4f})")
+
+    # launches: the main path's (kernel 3: its own path's; the float32
+    # variants: phase 14d's); launches_by_path: each strategy's run; prob_*:
+    # probability mode at 480p, where scaled_dot_product_attention computes
+    # the same function
+    keys = ("affinity_bank", "bottleneck", "affinity_bank_f32", "bottleneck_f32")
+    by_path = {k: {name: r["launches"][k] for name, r in strategies.items()} for k in keys}
     for k in by_path:
         by_path[k]["lockstep single --video-batch 8"] = lc["launches_vb8"][k]
         for name, r in lockstep["strategies"].items():
@@ -1936,6 +2324,10 @@ def main() -> int:
         by_path[k]["multimodel resnet50 + facebook"] = facebook["multimodel"]["launches"][k]
         by_path[k]["sharded engine, 4 bank shards (virtual mesh)"] = mesh["engine"]["launches"][k]
         by_path[k]["lockstep dp 2 x bank 2 --video-batch 3 (virtual mesh)"] = mesh["lockstep"]["launches"][k]
+        by_path[k]["float32 single"] = f32m["launches"][k]
+        by_path[k]["float32 lockstep single --video-batch 8"] = f32l["launches_vb8"][k]
+        by_path[k]["float32 lockstep dp 2 x bank 2 --video-batch 3 (virtual mesh)"] = f32l["mesh"]["launches"][k]
+        by_path[k]["float32 SVOS_FAST_ENCODER=0"] = f32["fast_encoder_off"]["launches"][k]
     lk = lockstep["kernels"]
     prob_keys = dict(prob_bound_ms=prob["bound_ms"], prob_bound_by=prob["bound_by"], prob_library_ms=prob["library_ms"])
     kernels = [
@@ -1954,6 +2346,14 @@ def main() -> int:
              replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:612", launches=prop_launches, **prop,
              prob_ms=prob["fused_ms"], **prob_keys,
              launches_training=training["cli"]["launches"]["affinity_propagate"]),
+        dict(name="affinity_bank_f32", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/affinity_bank_f32.cu",
+             replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:355", launches=f32m["launches"]["affinity_bank_f32"],
+             **f32["bank"], launches_by_path=by_path["affinity_bank_f32"],
+             launches_training=training["cli"]["launches"]["affinity_bank_f32"]),
+        dict(name="bottleneck_f32", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/bottleneck_f32.cu",
+             replaces="semi_supervised_vos_tpu/ops/bottleneck_pallas.py:121", launches=f32m["launches"]["bottleneck_f32"],
+             **f32["bottleneck"], launches_by_path=by_path["bottleneck_f32"],
+             launches_training=training["cli"]["launches"]["bottleneck_f32"]),
     ]
     print(json.dumps({"strategies": {name: dict(fps=r["fps"], seconds=r["seconds"], jf=r["jf"])
                                      for name, r in strategies.items()}}))
@@ -1961,6 +2361,7 @@ def main() -> int:
     print(json.dumps({"training": training}))
     print(json.dumps({"facebook": facebook}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"float32": f32}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

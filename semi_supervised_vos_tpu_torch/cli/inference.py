@@ -15,10 +15,18 @@ spreads lockstep video lanes (``parallel/batched_dp.py``); with
 device (``parallel/mesh.py``). On the card ``--dp-shards x --bank-shards``
 may not exceed ``torch.cuda.device_count()``; with ``--device cpu`` the mesh
 is virtual (the CPU named that many times), so there is no count to exceed.
+
+``SVOS_INFER_DTYPE`` (``float32`` or ``bfloat16``; the JAX CLI's default:
+bf16 on the card, float32 on the CPU) sets the features' dtype: on the card
+float32 runs the float32 variants of both kernels. ``SVOS_FAST_ENCODER=0``
+encodes with the module instead of the BN-folded fast encoder (card only),
+``SVOS_PROFILE=1`` logs per-phase timing and ``SVOS_TRACE_DIR`` writes a
+``torch.profiler`` trace (``infer/strategies.py::run_streams``).
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import click
@@ -27,6 +35,17 @@ import torch
 from semi_supervised_vos_tpu_torch.utils.logging import logger
 
 STRATEGIES = ["single", "hor-flip", "vert-flip", "2-scale", "multimodel", "hor-2-scale", "3-scale"]
+INFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def infer_dtype(dev: torch.device) -> torch.dtype:
+    """The engines' compute dtype from ``SVOS_INFER_DTYPE`` (JAX
+    ``cli/inference.py:106-116``): ``bfloat16`` on the card and ``float32``
+    on the CPU unless set; another value is a usage error."""
+    name = os.environ.get("SVOS_INFER_DTYPE", "bfloat16" if dev.type == "cuda" else "float32")
+    if name not in INFER_DTYPES:
+        raise click.UsageError(f"SVOS_INFER_DTYPE must be float32 or bfloat16, got {name!r}")
+    return INFER_DTYPES[name]
 
 
 @click.command(name="inference")
@@ -131,12 +150,13 @@ def inference_command_impl(ref_num, data, resume, model, temperature, frame_rang
     from semi_supervised_vos_tpu_torch.utils.runtime import resolve_device
 
     dev = resolve_device(device)
+    dtype = infer_dtype(dev)
     mesh, mesh_dp = make_meshes(dev, video_batch, bank_shards, dp_shards)
     net = load_torch_checkpoint(resume, VOSNet(model))
     dataset = InferenceDataset(str(Path(data) / "JPEGImages/480p"), inference_strategy=inference_strategy, scale=scale)
     cfg = EngineConfig(
         ref_num=ref_num, frame_range=frame_range, temperature=temperature,
-        sigma_1=sigma_1, sigma_2=sigma_2, probability_propagation=probability_propagation,
+        sigma_1=sigma_1, sigma_2=sigma_2, probability_propagation=probability_propagation, compute_dtype=dtype,
     )
     progress = None
     if not disable:

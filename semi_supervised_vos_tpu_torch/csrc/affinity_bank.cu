@@ -79,6 +79,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bank_split.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
@@ -447,9 +448,9 @@ cudaError_t prepare(int c, int wd, size_t* smem) {
 }  // namespace
 
 // How the sweep is cut: `splits` blocks per target tile, each over
-// `iters_per_split` (slot, bank tile) iterations. Picks the split count
-// that minimises waves x (iterations per block + a prologue of ~3) on this
-// device's SMs at this kernel's occupancy. Returns a cudaError_t.
+// `iters_per_split` (slot, bank tile) iterations, by the wave model of
+// bank_split.cuh on this device's SMs at this kernel's occupancy. Returns a
+// cudaError_t.
 extern "C" int affinity_bank_plan(int k, int batch, int p_loc, int c, int p, int wd, int* splits,
                                   int* iters_per_split) {
   if (k < 1 || c % 16 != 0 || c < 16 || c > 16 * kMaxCK || p < 1 || wd < 1 || batch < 1 || p_loc < 1)
@@ -466,19 +467,7 @@ extern "C" int affinity_bank_plan(int k, int batch, int p_loc, int c, int p, int
   if (occ < 1) return int(cudaErrorInvalidConfiguration);
   const long long n_iter = (long long)k * ((p_loc + TM - 1) / TM);
   const long long tiles = (long long)((p + TQ - 1) / TQ) * batch;
-  const long long slots = (long long)sms * occ;
-  long long best_cost = -1;
-  for (long long s = 1; s <= n_iter && s <= kMaxSplits; ++s) {
-    const long long ips = (n_iter + s - 1) / s;
-    const long long s_eff = (n_iter + ips - 1) / ips;
-    const long long waves = (tiles * s_eff + slots - 1) / slots;
-    const long long cost = waves * (ips + 3);
-    if (best_cost < 0 || cost < best_cost) {
-      best_cost = cost;
-      *splits = int(s_eff);
-      *iters_per_split = int(ips);
-    }
-  }
+  bank_split::choose(n_iter, tiles, (long long)sms * occ, kMaxSplits, splits, iters_per_split);
   return 0;
 }
 

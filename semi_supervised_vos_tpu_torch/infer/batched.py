@@ -23,7 +23,8 @@ host, rows of B frames are decoded ahead on a thread pool, and each
 chunk's PNGs are written on another while later chunks run.
 
 ``_hbm_lanes_cap`` caps the lanes on the card, and the frames of one encode
-call, by a lane-pixel budget measured on the card at two resolutions; with
+call, by a lane-pixel budget measured on the card at two resolutions, per
+network and compute dtype (a float32 bank doubles its feature bytes); with
 a mesh the runners scale it by the distinct cards that encode
 (``_mesh_data_chips``).
 
@@ -51,7 +52,7 @@ import torch
 from semi_supervised_vos_tpu_torch.core.sampling import sample_frames
 from semi_supervised_vos_tpu_torch.data.loader import prefetch
 from semi_supervised_vos_tpu_torch.infer.drain import MaskDrain
-from semi_supervised_vos_tpu_torch.infer.engine import BankState, PropagationEngine, grouped_map
+from semi_supervised_vos_tpu_torch.infer.engine import BankState, PropagationEngine, compute_dtype, grouped_map
 from semi_supervised_vos_tpu_torch.infer.strategies import REDUCTIONS, _flip_label, _with_budget, chunk_len
 from semi_supervised_vos_tpu_torch.models.resnet import out_spatial
 from semi_supervised_vos_tpu_torch.ops.onehot import index_to_onehot
@@ -98,9 +99,9 @@ def _unflip(x: torch.Tensor, how: Optional[str], h_axis: int, w_axis: int) -> to
 class BatchedPropagationEngine(PropagationEngine):
     """Lockstep propagation for B same-resolution streams.
 
-    Banks are slot-major, (capacity, B, P, C) features and (capacity, B, P,
-    D_pad) labels (bf16 on the card, float32 on the CPU), the layout the
-    bank kernel takes; each step overwrites its slot in place. With
+    Banks are slot-major, (capacity, B, P, C) features in the compute dtype
+    and (capacity, B, P, D_pad) labels (bf16 on the card, float32 on the
+    CPU), the layout the bank kernel takes; each step overwrites its slot in place. With
     ``fusion`` set, ``batch`` counts lanes (videos x streams) and
     :meth:`step_chunk` returns one fused mask per video, else one per lane.
     The encoder, the write-back and the chunk loops are the single
@@ -130,7 +131,8 @@ class BatchedPropagationEngine(PropagationEngine):
             g = fb.shape[0]
             return self.encode(fb.reshape((g * self.b,) + fb.shape[2:])).view(g, self.b, self.p, -1)
 
-        return grouped_map(enc, frames_u8, max(1, _hbm_lanes_cap((self.h, self.w), self.model.model) // self.b))
+        cap = _hbm_lanes_cap((self.h, self.w), self.model.model, self.dtype)
+        return grouped_map(enc, frames_u8, max(1, cap // self.b))
 
     def _propagate(self, targets: torch.Tensor, state: BankState, frame_idx: int) -> torch.Tensor:
         """(B, P, C) targets → (B, num_classes, P) float32 scores."""
@@ -247,17 +249,28 @@ BATCHABLE_STRATEGIES = tuple(_STRATEGY_LANES)
 #     at the cap).
 #   * facebook (layer4 keeps 2048 channels at stride 8), phase 12d: 0.3475
 #     GB a lane at 480p and 1.754 GB at 1080p; 171 and 33 lanes.
+#   * float32 features (SVOS_INFER_DTYPE=float32; the bank's features and
+#     the encoder's activations double), ``prof_torch/lane_caps.py``:
+#     resnet50 0.4727 GB a lane at 480p and 2.384 GB at 1080p, 125 and 24
+#     lanes; facebook 0.5710 and 2.882 GB, 104 and 20 lanes (measured at
+#     caps of 116 / 22 and 87 / 17 lanes: 0.647 / 0.619 and 0.588 / 0.580 of
+#     the card). Phase 14e checks resnet50's.
 _HBM_ANCHOR_P_SMALL = 6420
 _HBM_ANCHOR_P_LARGE = 32400
 _HBM_LANE_PX_SMALL = 232 * _HBM_ANCHOR_P_SMALL
 _HBM_LANE_PX_LARGE = 46 * _HBM_ANCHOR_P_LARGE
 _HBM_LANE_PX_ARCH = {"facebook": (171 * _HBM_ANCHOR_P_SMALL, 33 * _HBM_ANCHOR_P_LARGE)}
+_HBM_LANE_PX_F32 = (125 * _HBM_ANCHOR_P_SMALL, 24 * _HBM_ANCHOR_P_LARGE)
+_HBM_LANE_PX_F32_ARCH = {"facebook": (104 * _HBM_ANCHOR_P_SMALL, 20 * _HBM_ANCHOR_P_LARGE)}
 
 
-def _hbm_lanes_cap(hw: Tuple[int, int], arch: str = "resnet50") -> int:
-    """Most lockstep lanes per card for this frame size and network (see
-    the anchors)."""
-    small, large = _HBM_LANE_PX_ARCH.get(arch, (_HBM_LANE_PX_SMALL, _HBM_LANE_PX_LARGE))
+def _hbm_lanes_cap(hw: Tuple[int, int], arch: str = "resnet50", dtype=torch.bfloat16) -> int:
+    """Most lockstep lanes per card for this frame size, network and
+    compute dtype (see the anchors)."""
+    if dtype == torch.float32:
+        small, large = _HBM_LANE_PX_F32_ARCH.get(arch, _HBM_LANE_PX_F32)
+    else:
+        small, large = _HBM_LANE_PX_ARCH.get(arch, (_HBM_LANE_PX_SMALL, _HBM_LANE_PX_LARGE))
     hd, wd = out_spatial(hw[0], hw[1])
     p = hd * wd
     if p <= _HBM_ANCHOR_P_SMALL:
@@ -270,14 +283,16 @@ def _hbm_lanes_cap(hw: Tuple[int, int], arch: str = "resnet50") -> int:
     return max(1, int(budget) // p)
 
 
-def _clamp_video_batch(video_batch: int, lanes: int, *hws, n_chips: int = 1, archs=("resnet50",)) -> int:
+def _clamp_video_batch(video_batch: int, lanes: int, *hws, n_chips: int = 1, archs=("resnet50",),
+                       dtype=torch.bfloat16) -> int:
     """Videos per group such that every card's lanes stay inside the
     envelope of every engine resolution and network involved (``archs``:
-    the networks' names; multimodel's wider one governs): the per-card cap
-    first (each card would carry ceil(vb / n_chips) x lanes lanes), then
-    scaled by the card count; logs when it bites."""
-    governing = min(((hw, arch) for hw in hws for arch in archs), key=lambda k: _hbm_lanes_cap(*k))
-    per_chip_videos = max(1, _hbm_lanes_cap(*governing) // lanes)
+    the networks' names; multimodel's wider one governs) at the compute
+    ``dtype``: the per-card cap first (each card would carry ceil(vb /
+    n_chips) x lanes lanes), then scaled by the card count; logs when it
+    bites."""
+    governing = min(((hw, arch) for hw in hws for arch in archs), key=lambda k: _hbm_lanes_cap(*k, dtype))
+    per_chip_videos = max(1, _hbm_lanes_cap(*governing, dtype) // lanes)
     vb = max(1, min(video_batch, per_chip_videos * max(n_chips, 1)))
     if vb < video_batch:
         logger.info(
@@ -427,7 +442,7 @@ def inference_batched(dataset, annotation_dir, save_dir, model, cfg, device, vid
 
     n_chips = _mesh_data_chips(mesh)
     for hw, chunk, lengths in _groups(per_video, resolution, lambda hw: _clamp_video_batch(
-            video_batch, lanes, hw, n_chips=n_chips, archs=(model.model,))):
+            video_batch, lanes, hw, n_chips=n_chips, archs=(model.model,), dtype=compute_dtype(cfg, device))):
         labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
         engine = _make_engine(model, hw, len(chunk) * lanes, _with_budget(cfg, d_max), device, fusion, mesh)
         state = None
@@ -485,7 +500,7 @@ def inference_multimodel_batched(dataset, annotation_dir, save_dir, model, addit
     archs = (model.model, additional_model.model)
     n_chips = _mesh_data_chips(mesh)
     for hw, chunk, lengths in _groups(per_video, resolution, lambda hw: _clamp_video_batch(
-            video_batch, 2, hw, n_chips=n_chips, archs=archs)):
+            video_batch, 2, hw, n_chips=n_chips, archs=archs, dtype=compute_dtype(cfg, device))):
         labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
         gcfg = _with_budget(cfg, d_max)
         e1 = _make_engine(model, hw, len(chunk), gcfg, device, mesh=mesh)
@@ -531,7 +546,8 @@ def inference_2_scale_batched(dataset, annotation_dir, save_dir, model, cfg, dev
 
     # two per-resolution engines share the card: two lanes a video
     n_chips = _mesh_data_chips(mesh)
-    clamp = lambda hws: _clamp_video_batch(video_batch, 2, *hws, n_chips=n_chips, archs=(model.model,))  # noqa: E731
+    clamp = lambda hws: _clamp_video_batch(video_batch, 2, *hws, n_chips=n_chips, archs=(model.model,),
+                                           dtype=compute_dtype(cfg, device))  # noqa: E731
     for (hw1, hw2), chunk, lengths in _groups(per_video, resolutions, clamp):
         labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
         gcfg = _with_budget(cfg, d_max)
@@ -610,7 +626,8 @@ def inference_3_scale_batched(dataset, annotation_dir, save_dir, model, cfg, dev
             return int(np.ceil(h * sc)), int(np.ceil(w * sc))
 
         for hw, chunk, lengths in _groups(per_video, resolution, lambda hw: _clamp_video_batch(
-                video_batch, 1, hw, n_chips=_mesh_data_chips(mesh), archs=(model.model,))):
+                video_batch, 1, hw, n_chips=_mesh_data_chips(mesh), archs=(model.model,),
+                dtype=compute_dtype(cfg, device))):
             labels, pals, d_max = _first_labels(chunk, annotation_dir, save_dir, copy=pass_idx == 0)
             palettes.update(pals)
             engine = _make_engine(model, hw, len(chunk), _with_budget(cfg, d_max), device, mesh=mesh)

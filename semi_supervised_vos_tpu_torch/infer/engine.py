@@ -20,20 +20,30 @@ the device until the chunk is done.
 
 Two paths, as in the JAX engine:
   * on CUDA: the BN-folded ``fast_encode`` with the fused bottleneck kernel,
-    the bank-direct affinity kernel, bf16 features and labels;
+    the bank-direct affinity kernel, bf16 labels;
   * on the CPU: the unfolded module forward, the dense golden
-    ``affinity_propagate`` and float32 — the JAX engine's CPU path.
+    ``affinity_propagate`` and float32 labels — the JAX engine's CPU path.
 
-The engine sets no global state: its one float32 convolution on the card,
-the encoder's stem, runs in a scope that restores both of PyTorch's TF32
-flags (``models/infer_fast.py``), so building or stepping an engine leaves
-them as the caller set them.
+Features (the encoder's output and the bank) are in
+``EngineConfig.compute_dtype`` (``SVOS_INFER_DTYPE`` at the CLI): bf16 or
+float32, by default bf16 on the card and float32 on the CPU. On the card a
+float32 engine folds a float32 table and runs the float32 variants of both
+kernels; on the CPU bf16 rounds the features as the JAX CPU path does.
+``SVOS_FAST_ENCODER=0`` makes the card encode with the module (full
+float32, then rounded to the compute dtype) instead of ``fast_encode``; on
+the CPU, which never takes the fast encoder, it changes nothing.
+
+The engine sets no global state: its float32 convolutions on the card (the
+encoder's stem, a whole float32 encode) run in a scope that restores both
+of PyTorch's TF32 flags (``models/infer_fast.py``), so building or stepping
+an engine leaves them as the caller set them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+import os
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,10 +96,21 @@ class EngineConfig:
     num_classes: int = DEFAULT.num_classes
     feature_dim: int = 256
     continuous_frame: int = DEFAULT.continuous_frame
+    # features' dtype: torch.bfloat16 or torch.float32; None is the device's
+    # default (:func:`compute_dtype`)
+    compute_dtype: Optional[torch.dtype] = None
 
     @property
     def capacity(self) -> int:
         return bank_capacity(self.frame_range, self.continuous_frame)
+
+
+def compute_dtype(cfg: EngineConfig, device) -> torch.dtype:
+    """The features' dtype of an engine on ``device``: ``cfg.compute_dtype``,
+    else bf16 on the card and float32 on the CPU (the JAX CLI's defaults)."""
+    if cfg.compute_dtype is not None:
+        return cfg.compute_dtype
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 
 class PropagationEngine:
@@ -107,18 +128,21 @@ class PropagationEngine:
         self.on_card = self.device.type == "cuda"
         self.mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
         self.std = torch.as_tensor(IMAGENET_STD, device=self.device)
+        self.dtype = compute_dtype(cfg, self.device)
+        if self.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"compute_dtype must be torch.bfloat16 or torch.float32, got {self.dtype}")
+        # the folded table of fast_encode (None: the module encodes)
+        self.table = None
         if self.on_card:
             from semi_supervised_vos_tpu_torch.models.fold import fold_vosnet
 
-            self.dtype = torch.bfloat16
             self.label_dtype = torch.bfloat16
             self.d_pad = -(-cfg.num_classes // 8) * 8
-            if table is None:
+            if table is None and os.environ.get("SVOS_FAST_ENCODER", "1") != "0":
                 with torch.no_grad():
                     table = fold_vosnet(self.model, self.dtype)
             self.table = table
         else:
-            self.dtype = torch.float32
             self.label_dtype = torch.float32
             self.d_pad = cfg.num_classes
             self._wd, self._ws = self._prior_matrices()
@@ -138,10 +162,19 @@ class PropagationEngine:
         # decoded frames are read-only arrays; torch wants writable memory
         x = torch.from_numpy(np.require(frames_u8, np.uint8, ['C', 'W'])).to(self.device)
         x = (x.float() / 255.0 - self.mean) / self.std
-        if self.on_card:
+        if self.table is not None:
             from semi_supervised_vos_tpu_torch.models.infer_fast import fast_encode
 
             feats = fast_encode(self.table, x, self.dtype, arch=self.model.model)
+        elif self.on_card:
+            from semi_supervised_vos_tpu_torch.models.infer_fast import _full_float32
+
+            # SVOS_FAST_ENCODER=0: the module in full float32 (engines of a
+            # mesh share the module: it follows the encoding card)
+            if next(self.model.parameters()).device != self.device:
+                self.model.to(self.device)
+            with _full_float32():
+                feats = self.model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         else:
             feats = self.model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return feats.reshape(x.shape[0], self.p, self.cfg.feature_dim).to(self.dtype)

@@ -51,6 +51,7 @@ from semi_supervised_vos_tpu_torch.utils.image import (
     save_predictions,
 )
 from semi_supervised_vos_tpu_torch.utils.logging import logger
+from semi_supervised_vos_tpu_torch.utils.profiling import PhaseTimer, trace
 
 REDUCTIONS = {
     "maximum": torch.maximum,
@@ -151,7 +152,12 @@ def run_streams(
     """Per-frame loop over an ordered (video-grouped) dataset.
     ``make_streams(frame_hw, num_classes)`` builds the streams; they are
     rebuilt when the resolution changes or a video has more objects than
-    the current class budget."""
+    the current class budget.
+
+    Set ``SVOS_PROFILE=1`` for per-phase timing of the single-stream chunks
+    (``chunk_dispatch``, then ``chunk_sync`` up to the card's fence),
+    ``SVOS_TRACE_DIR=<dir>`` for a ``torch.profiler`` trace of the loop."""
+    timer = PhaseTimer() if os.environ.get("SVOS_PROFILE") else None
     chunk_n = chunk_len()
     streams: List[Stream] = []
     fuser = None
@@ -172,7 +178,13 @@ def run_streams(
         n = len(pending)
         if len(streams) == 1:
             s = streams[0]
-            masks, s.state = s.engine.step_chunk_small(np.stack(frames_of(s)), s.state, frame_idx)
+            if timer is not None:
+                with timer.phase("chunk_dispatch"):
+                    masks, s.state = s.engine.step_chunk_small(np.stack(frames_of(s)), s.state, frame_idx)
+                with timer.phase("chunk_sync", sync=masks):
+                    pass
+            else:
+                masks, s.state = s.engine.step_chunk_small(np.stack(frames_of(s)), s.state, frame_idx)
 
             def convert(m=masks, hw=out_hw):
                 a = m.cpu().numpy()
@@ -201,34 +213,37 @@ def run_streams(
         if masks:
             save_predictions(masks, palette, save_dir, last_video)
 
-    try:
-        for item, video in prefetch_dataset(dataset):
-            if video != last_video and last_video is not None:
-                flush()
-                frame_idx = 0
-            if frame_idx == 0:
-                out_hw = (item[0] if isinstance(item, tuple) else item).shape[:2]
-                annotation = first_annotation_path(annotation_dir, video)
-                label, d, palette = load_annotation(annotation)
-                budget = streams[0].engine.cfg.num_classes if streams else 0
-                if not streams or (streams[0].engine.h, streams[0].engine.w) != tuple(out_hw) or d > budget:
-                    streams = make_streams(tuple(out_hw), max(d, budget))
-                    fuser = _make_fuser(streams, out_hw, probability, reduction)
-                copy_first_annotation(annotation, save_dir, video)
-                for s in streams:
-                    frame = item if s.input_idx is None else item[s.input_idx]
-                    s.state = s.engine.start_video(frame, _flip_label(label, s.label_flip))
-                frame_idx = 1
-            else:
-                pending.append(item)
-                if len(pending) == chunk_n:
-                    run_pending()
-            last_video = video
-            if progress:
-                progress()
-        flush()
-    finally:
-        drain.close()
+    with trace():  # a no-op unless SVOS_TRACE_DIR is set
+        try:
+            for item, video in prefetch_dataset(dataset):
+                if video != last_video and last_video is not None:
+                    flush()
+                    frame_idx = 0
+                if frame_idx == 0:
+                    out_hw = (item[0] if isinstance(item, tuple) else item).shape[:2]
+                    annotation = first_annotation_path(annotation_dir, video)
+                    label, d, palette = load_annotation(annotation)
+                    budget = streams[0].engine.cfg.num_classes if streams else 0
+                    if not streams or (streams[0].engine.h, streams[0].engine.w) != tuple(out_hw) or d > budget:
+                        streams = make_streams(tuple(out_hw), max(d, budget))
+                        fuser = _make_fuser(streams, out_hw, probability, reduction)
+                    copy_first_annotation(annotation, save_dir, video)
+                    for s in streams:
+                        frame = item if s.input_idx is None else item[s.input_idx]
+                        s.state = s.engine.start_video(frame, _flip_label(label, s.label_flip))
+                    frame_idx = 1
+                else:
+                    pending.append(item)
+                    if len(pending) == chunk_n:
+                        run_pending()
+                last_video = video
+                if progress:
+                    progress()
+            flush()
+        finally:
+            drain.close()
+    if timer is not None:
+        timer.report()
 
 
 # ---- strategy entry points -------------------------------------------------

@@ -26,6 +26,11 @@ Replays ``VOSNet`` from the folded table of
 With a bf16 image, stem kernel and a rounding after each step, facebook's
 bf16 encoder fell below the 0.9999 cosine gate at 480p (0.999895 on an H100).
 
+With ``dtype=torch.float32`` (``SVOS_INFER_DTYPE=float32``, a float32 table
+from ``fold_vosnet``) the whole encode runs inside :func:`_full_float32`,
+so cuDNN's default TF32 does not round its convolutions, and the fused
+blocks run the float32 kernel (the same 11 / 8 launches a call).
+
 Activations are NCHW tensors in the channels-last memory format, so the
 NHWC view the fused kernel takes, and the (pixels, channels) matrix of a 1x1
 conv, are free.
@@ -127,17 +132,18 @@ def fast_encode(
 
     expansion = 1 if basic else 4
     inplanes = 64
-    for stage, (planes, blocks, stride) in enumerate(
-        zip(ARCH_PLANES[arch], ARCH_LAYERS[arch], STAGE_STRIDES), start=1
-    ):
-        for b in range(blocks):
-            s = stride if b == 0 else 1
-            has_ds = b == 0 and (s != 1 or inplanes != planes * expansion)
-            x = run_block(x, f"layer{stage}_{b}", s, has_ds)
-            inplanes = planes * expansion
+    with _full_float32() if dtype == torch.float32 else contextlib.nullcontext():
+        for stage, (planes, blocks, stride) in enumerate(
+            zip(ARCH_PLANES[arch], ARCH_LAYERS[arch], STAGE_STRIDES), start=1
+        ):
+            for b in range(blocks):
+                s = stride if b == 0 else 1
+                has_ds = b == 0 and (s != 1 or inplanes != planes * expansion)
+                x = run_block(x, f"layer{stage}_{b}", s, has_ds)
+                inplanes = planes * expansion
 
-    if arch == "facebook":
-        x = _conv1x1(x, table, "head0")  # no BN, no ReLU before the next conv
-    if not basic:
-        x = _conv1x1(x, table, "head")
+        if arch == "facebook":
+            x = _conv1x1(x, table, "head0")  # no BN, no ReLU before the next conv
+        if not basic:
+            x = _conv1x1(x, table, "head")
     return x.permute(0, 2, 3, 1)

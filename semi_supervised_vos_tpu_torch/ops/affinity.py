@@ -7,7 +7,11 @@ Ports of the two propagation kernels of
 it), each with its own launch counter. The kernel splits the bank sweep
 over blocks and a second kernel of the same source combines the partial
 statistics (:func:`combine_partials`, plain version
-:func:`combine_partials_plain`); one op call is one count.
+:func:`combine_partials_plain`); one op call is one count. A float32 bank
+(``SVOS_INFER_DTYPE=float32``) runs the bank sweep of
+``csrc/affinity_bank_f32.cu`` instead (float32 similarity, the same split
+plan and combine kernel), counted apart in
+``affinity_from_bank_batched.launches_f32``.
 
 * ``affinity_from_bank_batched`` (and its ``affinity_from_bank`` /
   ``affinity_from_bank_stats`` wrappers): the engine's op, reading the ring
@@ -38,8 +42,9 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
-MAX_WIDTH = 256  # feature widths the kernel takes (its target rows live in registers)
-LABEL_GROUP = 64  # label columns per sweep of the kernel
+MAX_WIDTH = 256  # feature widths the kernels take (the bf16 kernel's target rows live in registers)
+LABEL_GROUP = 64  # label columns per sweep of the bf16 kernel
+LABEL_GROUP_F32 = 24  # of the float32 kernel: one sweep at the 22-class budget
 
 
 def slot_table(
@@ -135,18 +140,21 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
 
 
 def _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, valid, dense, *, feature_hw, sigma_1, sigma_2,
-                       spatial, row_base, return_stats):
-    """Check the arguments and launch ``csrc/affinity_bank.cu`` on the current
-    stream; ``tgt`` is the (B, P, C) bf16 target with the temperature folded
+                       spatial, row_base, return_stats, f32=False):
+    """Check the arguments and launch the bank sweep on the current stream:
+    ``csrc/affinity_bank.cu`` on a bf16 bank and target, or with ``f32``
+    ``csrc/affinity_bank_f32.cu`` on a float32 bank and target (labels bf16
+    in both); ``tgt`` is the (B, P, C) target with the temperature folded
     in. Returns the (B, D_pad, P) output, or (m, l, acc) in stats mode."""
     dev = bank_feats.device
     cap, b, p_loc, c = bank_feats.shape
     d_pad = bank_labels.shape[-1]
     hd, wd = feature_hw
     p = hd * wd
-    _check(bank_feats, "bank_feats", torch.bfloat16, 4, dev)
+    feat_dtype = torch.float32 if f32 else torch.bfloat16
+    _check(bank_feats, "bank_feats", feat_dtype, 4, dev)
     _check(bank_labels, "bank_labels", torch.bfloat16, 4, dev)
-    _check(tgt, "target", torch.bfloat16, 3, dev)
+    _check(tgt, "target", feat_dtype, 3, dev)
     if bank_labels.shape[:3] != (cap, b, p_loc) or d_pad % 8:
         raise ValueError(f"bank_labels shape {tuple(bank_labels.shape)} does not match the bank")
     if c % 16 or c > MAX_WIDTH:
@@ -166,52 +174,62 @@ def _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, valid, dense, *, fe
     table = np.stack([slots, inv_sigma2.view(np.int32), bias.view(np.int32)])
     table = torch.from_numpy(table).pin_memory().to(dev, non_blocking=True)
 
-    lib = _library()
+    name = "affinity_bank_f32" if f32 else "affinity_bank"
+    lib = _library(name)
+    group = LABEL_GROUP_F32 if f32 else LABEL_GROUP
     # the library's host code works on the current device (its shared-memory
     # attribute, SM count and occupancy, the launch itself): make it dev's
     with torch.cuda.device(dev):
-        splits, ips = _plan(dev.index, k, b, p_loc, c, p, wd)
+        splits, ips = _plan(name, dev.index, k, b, p_loc, c, p, wd)
         # partial (m, l, acc) of each split of the bank sweep
         pm = torch.empty((splits, b, p), dtype=torch.float32, device=dev)
         pl = torch.empty_like(pm)
         pacc = torch.empty((splits, b, d_pad, p), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        # label columns in groups of at most LABEL_GROUP per sweep
-        for d_off in range(0, d_pad, LABEL_GROUP):
-            err = lib.affinity_bank_launch(
+        sweep_launch = getattr(lib, f"{name}_launch")
+        # label columns in groups of at most `group` per sweep
+        for d_off in range(0, d_pad, group):
+            err = sweep_launch(
                 bank_feats.data_ptr(), bank_labels.data_ptr(), tgt.data_ptr(), pm.data_ptr(), pl.data_ptr(),
                 pacc.data_ptr(), table.data_ptr(), k, cap, b, p_loc, c, d_pad, d_off,
-                min(LABEL_GROUP, d_pad - d_off), p, wd, int(row_base), splits, ips, stream,
+                min(group, d_pad - d_off), p, wd, int(row_base), splits, ips, stream,
             )
             if err != 0:
-                raise RuntimeError(f"affinity_bank kernel launch failed: cudaError {err}")
-    return _launch_combine(lib, pm, pl, pacc, return_stats)
+                raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    # both sweeps write float32 partials: one combine kernel
+    return _launch_combine(_library(), pm, pl, pacc, return_stats)
 
 
-def _library():
-    """The loaded ``csrc/affinity_bank.cu`` library, its C signatures set."""
+def _library(name: str = "affinity_bank"):
+    """The loaded library of ``csrc/<name>.cu`` (``affinity_bank`` or
+    ``affinity_bank_f32``), its C signatures set."""
     from semi_supervised_vos_tpu_torch.ops._build import load
 
-    lib = load("affinity_bank")
+    lib = load(name)
     if not getattr(lib, "signatures_set", False):
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.affinity_bank_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 2
-        lib.affinity_bank_launch.argtypes = [p] * 7 + [i] * 13 + [p]
-        lib.affinity_combine_launch.argtypes = [p] * 6 + [i] * 5 + [p]
-        for fn in (lib.affinity_bank_plan, lib.affinity_bank_launch, lib.affinity_combine_launch):
+        fns = [getattr(lib, f"{name}_plan"), getattr(lib, f"{name}_launch")]
+        fns[0].argtypes = [i] * 6 + [ctypes.POINTER(i)] * 2
+        fns[1].argtypes = [p] * 7 + [i] * 13 + [p]
+        if name == "affinity_bank":
+            lib.affinity_combine_launch.argtypes = [p] * 6 + [i] * 5 + [p]
+            fns.append(lib.affinity_combine_launch)
+        for fn in fns:
             fn.restype = i
         lib.signatures_set = True
     return lib
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(device_index: int, k: int, b: int, p_loc: int, c: int, p: int, wd: int) -> Tuple[int, int]:
-    """(splits, iterations per split) of a sweep of this shape on this card."""
+def _plan(name: str, device_index: int, k: int, b: int, p_loc: int, c: int, p: int, wd: int) -> Tuple[int, int]:
+    """(splits, iterations per split) of a sweep of kernel ``name`` of this
+    shape on this card."""
     splits, ips = ctypes.c_int(0), ctypes.c_int(0)
+    bank_plan = getattr(_library(name), f"{name}_plan")
     with torch.cuda.device(device_index):
-        err = _library().affinity_bank_plan(k, b, p_loc, c, p, wd, ctypes.byref(splits), ctypes.byref(ips))
+        err = bank_plan(k, b, p_loc, c, p, wd, ctypes.byref(splits), ctypes.byref(ips))
     if err != 0:
-        raise RuntimeError(f"affinity_bank plan failed: cudaError {err}")
+        raise RuntimeError(f"{name} plan failed: cudaError {err}")
     return splits.value, ips.value
 
 
@@ -287,8 +305,10 @@ def affinity_from_bank_batched(
     """B videos in lockstep, each reading its ring bank by slot index.
 
     Args:
-      bank_feats: (capacity, B, P_loc, C) bank features (bf16 on the card).
-      bank_labels: (capacity, B, P_loc, D_pad) labels, D_pad % 8 == 0.
+      bank_feats: (capacity, B, P_loc, C) bank features (bf16 or float32 on
+        the card: the float32 kernel runs on a float32 bank).
+      bank_labels: (capacity, B, P_loc, D_pad) labels, D_pad % 8 == 0 (bf16
+        on the card).
       target_feats: (B, P, C) current-frame features (any float dtype; the
         temperature is applied in float32, then rounded to the bank dtype).
       slots: (K,) host ints, physical bank slots of the sampled frames (any
@@ -312,13 +332,19 @@ def affinity_from_bank_batched(
         raise ValueError(f"unsupported device {dev}")
     if target_feats.device != dev:
         raise ValueError(f"target_feats is on {target_feats.device}, expected {dev}")
+    if bank_feats.dtype == torch.float32:
+        tgt = (target_feats.float() * temperature).contiguous()
+        out = _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, f32=True, **kw)
+        affinity_from_bank_batched.launches_f32 += 1
+        return out
     tgt = (target_feats.float() * temperature).to(torch.bfloat16).contiguous()
     out = _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, **kw)
     affinity_from_bank_batched.launches += 1
     return out
 
 
-affinity_from_bank_batched.launches = 0
+affinity_from_bank_batched.launches = 0  # csrc/affinity_bank.cu
+affinity_from_bank_batched.launches_f32 = 0  # csrc/affinity_bank_f32.cu
 
 
 def affinity_from_bank(bank_feats, bank_labels, target_feat, slots, **kw) -> torch.Tensor:

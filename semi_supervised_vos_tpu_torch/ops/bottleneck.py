@@ -4,9 +4,12 @@ PyTorch version.
 Port of ``semi_supervised_vos_tpu/ops/bottleneck_pallas.py::
 bottleneck_block``: one stride-1 bottleneck without a downsample branch in
 NHWC, ``relu(x + relu(conv3x3(relu(x·W1+b1)) + b2)·W3 + b3)``, with the
-C/4-wide intermediates kept on chip. The kernel is ``csrc/bottleneck.cu``;
-see its header for the design and what bounds it. y1 and y2 are rounded to
-the activation dtype, as in the JAX kernel.
+C/4-wide intermediates kept on chip. The kernel is ``csrc/bottleneck.cu``
+on bf16 activations and ``csrc/bottleneck_f32.cu`` on float32 ones
+(``SVOS_INFER_DTYPE=float32``), counted apart in
+``bottleneck_block.launches`` and ``bottleneck_block.launches_f32``; see
+their headers for the designs and what bounds them. y1 and y2 are rounded
+to the activation dtype, as in the JAX kernel.
 
 On a CPU tensor the wrapper runs :func:`bottleneck_block_plain`; on a CUDA
 tensor it launches the kernel or raises.
@@ -47,13 +50,16 @@ def bottleneck_block(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     """One fused stride-1 bottleneck block without a downsample branch.
 
     Args:
-      x: (N, H, W, C) activations, NHWC (bf16 and contiguous on the card).
+      x: (N, H, W, C) activations, NHWC (bf16 or float32 and contiguous on
+        the card).
       w1: (C, C4) or (1, 1, C, C4) folded 1x1 kernel; b1: (C4,) float32.
       w2: (3, 3, C4, C4) folded 3x3 kernel, HWIO; b2: (C4,) float32.
       w3: (C4, C) or (1, 1, C4, C) folded 1x1 kernel; b3: (C,) float32.
+      On the card the kernels are in x's dtype.
 
     Returns (N, H, W, C) in x's dtype. On the card, C4 must be 128 or 256
-    and C a multiple of 64 (the 11 wide blocks of resnet50 / resnet101).
+    and C a multiple of 64, of 128 in float32 (the 11 wide blocks of
+    resnet50 / resnet101).
     """
     dev = x.device
     if dev.type == "cpu":
@@ -63,13 +69,15 @@ def bottleneck_block(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     w1, w3 = _as_matrix(w1), _as_matrix(w3)
     n, h, w, c = x.shape
     c4 = w1.shape[-1]
+    f32 = x.dtype == torch.float32
+    dt = torch.float32 if f32 else torch.bfloat16
     shapes = {
-        "x": (x, (n, h, w, c), torch.bfloat16),
-        "w1": (w1, (c, c4), torch.bfloat16),
+        "x": (x, (n, h, w, c), dt),
+        "w1": (w1, (c, c4), dt),
         "b1": (b1, (c4,), torch.float32),
-        "w2": (w2, (3, 3, c4, c4), torch.bfloat16),
+        "w2": (w2, (3, 3, c4, c4), dt),
         "b2": (b2, (c4,), torch.float32),
-        "w3": (w3, (c4, c), torch.bfloat16),
+        "w3": (w3, (c4, c), dt),
         "b3": (b3, (c,), torch.float32),
     }
     for name, (t, shape, dtype) in shapes.items():
@@ -79,12 +87,14 @@ def bottleneck_block(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
             )
         if not t.is_contiguous() or t.data_ptr() % 32:
             raise ValueError(f"{name} must be contiguous and 32-byte aligned")
-    if c4 not in (128, 256) or c % 64:
-        raise ValueError(f"kernel takes C4 in (128, 256) and C % 64 == 0, got C={c} C4={c4}")
+    c_mult = 128 if f32 else 64
+    if c4 not in (128, 256) or c % c_mult:
+        raise ValueError(f"kernel takes C4 in (128, 256) and C % {c_mult} == 0, got C={c} C4={c4}")
     out = torch.empty_like(x)
     from semi_supervised_vos_tpu_torch.ops._build import load
 
-    fn = load("bottleneck").bottleneck_launch
+    name = "bottleneck_f32" if f32 else "bottleneck"
+    fn = getattr(load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     # the library's host code (shared-memory attribute, SM count, occupancy)
@@ -96,9 +106,13 @@ def bottleneck_block(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"bottleneck kernel launch failed: cudaError {err}")
-    bottleneck_block.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    if f32:
+        bottleneck_block.launches_f32 += 1
+    else:
+        bottleneck_block.launches += 1
     return out
 
 
-bottleneck_block.launches = 0
+bottleneck_block.launches = 0  # csrc/bottleneck.cu
+bottleneck_block.launches_f32 = 0  # csrc/bottleneck_f32.cu

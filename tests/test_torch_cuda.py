@@ -186,14 +186,22 @@ def test_twenty_slots_match_plain(card, nprng, op):
 
 
 def test_card_tensors_never_take_the_plain_version(card):
-    """A CUDA tensor the kernel does not take raises; it is not handed to the
-    plain version."""
-    x = torch.zeros((1, 4, 4, 512), device=card)  # float32, the kernel takes bf16
+    """A CUDA tensor the kernels do not take raises; it is not handed to the
+    plain version, nor rounded to another dtype: float16 (the kernels take
+    bf16 or float32), float32 labels (both bank kernels take bf16), bf16
+    weights under float32 activations."""
+    x = torch.zeros((1, 4, 4, 512), device=card, dtype=torch.float16)
     w = [torch.zeros(s, device=card) for s in [(512, 128), (128,), (3, 3, 128, 128), (128,), (128, 512), (512,)]]
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         tb.bottleneck_block(x, *w)
-    bank = torch.zeros((4, 1, 16, 32), device=card)  # float32
+    w16 = [t.to(torch.bfloat16) if i % 2 == 0 else t for i, t in enumerate(w)]
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        tb.bottleneck_block(x.float(), *w16)
+    bank = torch.zeros((4, 1, 16, 32), device=card, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16"):
+        tap.affinity_from_bank_batched(bank, bank, bank[0], [0], feature_hw=(4, 4), temperature=1.0)
+    bank = bank.float()
+    with pytest.raises(TypeError, match="bank_labels must be torch.bfloat16"):
         tap.affinity_from_bank_batched(bank, bank, bank[0], [0], feature_hw=(4, 4), temperature=1.0)
     ref = torch.zeros((2, 16, 32), device=card)
     with pytest.raises(ValueError, match="target_feat is on cpu"):
@@ -486,5 +494,121 @@ def test_engines_leave_tf32_flags_alone(card, nprng, flags):
         lockstep.step_chunk_small(clips[1:], lockstep.start_videos(clips[0], labels), 1)
         torch.cuda.synchronize()
         assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+# ---- the float32 variants (SVOS_INFER_DTYPE=float32) -----------------------
+
+
+@pytest.mark.parametrize(
+    "hd,wd,b,row_base,stats,spatial",
+    [(16, 20, 1, 0, False, True), (16, 20, 2, 0, False, True), (16, 20, 1, 160, True, True),
+     (60, 107, 1, 0, False, True), (60, 107, 1, 0, False, False), (13, 27, 1, 0, False, True),
+     (60, 107, 1, 3200, True, True)],
+)
+def test_f32_bank_kernel_matches_plain(card, nprng, hd, wd, b, row_base, stats, spatial):
+    """``csrc/affinity_bank_f32.cu`` on a float32 bank and target (bf16
+    labels) against its plain version, which computes in float32 on the
+    card with full-float32 products."""
+    c, d_pad, cap, k = 256, 24, 45, 9
+    p = hd * wd
+    feats, labels = _bank(nprng, card, cap, b, p - row_base, c, d_pad)
+    feats = torch.as_tensor(nprng.standard_normal(tuple(feats.shape)) * 0.2, dtype=torch.float32, device=card)
+    tgt = torch.as_tensor(nprng.standard_normal((b, p, c)) * 0.2, dtype=torch.float32, device=card)
+    idx, valid, dense = sample_frames(50, 40, k)
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense, spatial=spatial,
+              row_base=row_base, return_stats=stats)
+    before = (tap.affinity_from_bank_batched.launches, tap.affinity_from_bank_batched.launches_f32)
+    got = tap.affinity_from_bank_batched(feats, labels, tgt, idx % cap, **kw)
+    torch.cuda.synchronize()
+    assert (tap.affinity_from_bank_batched.launches, tap.affinity_from_bank_batched.launches_f32) == (
+        before[0], before[1] + 1)
+    expect = tap.affinity_from_bank_plain(feats, labels, tgt, idx % cap, **kw)
+    got = got if stats else (got,)
+    expect = expect if stats else (expect,)
+    # float32 throughout; summation order and exp2 differ
+    for g, e in zip(got, expect):
+        torch.testing.assert_close(g, e, rtol=1e-4, atol=3.4e-5)
+    if not stats:
+        assert (got[0][:, :22].argmax(1) == expect[0][:, :22].argmax(1)).all()
+        assert (got[0][:, 22:] == 0).all()
+
+
+def test_f32_bank_kernel_eight_lanes_at_480p(card, nprng):
+    """B = 8 float32 lanes at 480p against the plain version lane by lane."""
+    hd, wd, c, d_pad, cap, k, b = 60, 107, 256, 24, 45, 9, 8
+    p = hd * wd
+    _, labels = _bank(nprng, card, cap, b, p, c, d_pad)
+    feats = torch.randn((cap, b, p, c), generator=torch.Generator(device=card).manual_seed(3), device=card) * 0.2
+    tgt = torch.as_tensor(nprng.standard_normal((b, p, c)) * 0.2, dtype=torch.float32, device=card)
+    idx, valid, dense = sample_frames(50, 40, k)
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense)
+    got = tap.affinity_from_bank_batched(feats, labels, tgt, idx % cap, **kw)
+    torch.cuda.synchronize()
+    for lane in range(b):
+        expect = tap.affinity_from_bank_plain(feats[:, lane : lane + 1], labels[:, lane : lane + 1],
+                                              tgt[lane : lane + 1], idx % cap, **kw)[0, :22]
+        torch.testing.assert_close(got[lane, :22], expect, rtol=1e-4, atol=3.4e-5)
+        assert (got[lane, :22].argmax(0) == expect.argmax(0)).all()
+
+
+@pytest.mark.parametrize(
+    "n,h,w,c,c4",
+    [(1, 60, 107, 512, 128), (2, 60, 107, 1024, 256), (1, 13, 27, 512, 128), (1, 69, 123, 1024, 256),
+     (1, 54, 97, 512, 128), (3, 13, 27, 1024, 256)],
+)
+def test_f32_bottleneck_kernel_matches_plain(card, nprng, monkeypatch, n, h, w, c, c4):
+    """``csrc/bottleneck_f32.cu`` against its plain version with TF32 off
+    (cuDNN would round the plain version's 3x3 otherwise): max error <= 1e-4
+    of the largest output."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    x = torch.as_tensor(nprng.standard_normal((n, h, w, c)) * 0.5, dtype=torch.float32, device=card)
+    shapes = [(c, c4), (c4,), (3, 3, c4, c4), (c4,), (c4, c), (c,)]
+    wts = [torch.as_tensor(nprng.standard_normal(s) * (0.05 if len(s) > 1 else 0.1), dtype=torch.float32,
+                           device=card) for s in shapes]
+    before = (tb.bottleneck_block.launches, tb.bottleneck_block.launches_f32)
+    got = tb.bottleneck_block(x, *wts)
+    torch.cuda.synchronize()
+    assert (tb.bottleneck_block.launches, tb.bottleneck_block.launches_f32) == (before[0], before[1] + 1)
+    assert got.dtype == torch.float32
+    expect = tb.bottleneck_block_plain(x, *wts)
+    assert (got - expect).abs().max() <= 1e-4 * expect.abs().max()
+
+
+@pytest.mark.parametrize("flags", [(True, True), (False, False)])
+def test_f32_engines_one_step(card, nprng, flags):
+    """A float32 single engine and a float32 lockstep engine (resnet50), one
+    chunk each: only the float32 kernels launch (11 bottleneck launches an
+    encode call, one bank launch a step), the lockstep masks equal the single
+    engine's, and both TF32 flags are left as the caller set them."""
+    from semi_supervised_vos_tpu_torch.infer.batched import BatchedPropagationEngine
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
+
+    b, n, h, w = 2, 5, 128, 224
+    clips, labels = _moving_squares(nprng, b, n, h, w)
+    net = _calibrated_resnet50(card, clips)
+    cfg = EngineConfig(compute_dtype=torch.float32)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        counters = (tap.affinity_from_bank_batched, tb.bottleneck_block)
+        before = [(f.launches, f.launches_f32) for f in counters]
+        single = PropagationEngine(net, (h, w), cfg, card)
+        assert single.dtype == torch.float32 and single.label_dtype == torch.bfloat16
+        st = single.start_video(clips[0, 0], labels[0])
+        masks, st = single.step_chunk_small(clips[1:, 0], st, 1)
+        lockstep = BatchedPropagationEngine(net, (h, w), b, cfg, card)
+        lst = lockstep.start_videos(clips[0], labels)
+        lmasks, lst = lockstep.step_chunk_small(clips[1:], lst, 1)
+        torch.cuda.synchronize()
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+        after = [(f.launches, f.launches_f32) for f in counters]
+        assert after[0] == (before[0][0], before[0][1] + 2 * (n - 1))  # single: n - 1 steps; lockstep: n - 1
+        assert after[1] == (before[1][0], before[1][1] + 4 * 11)  # two encode calls each
+        assert st.feats.dtype == lst.feats.dtype == torch.float32
+        assert masks.max().item() >= 1
+        assert (lmasks[:, 0] == masks).double().mean().item() >= 0.999
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
