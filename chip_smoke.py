@@ -80,13 +80,16 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
      one-card lockstep CLI; (d) ``--bank-shards 1 --dp-shards 1`` through
      the CLI, and ``--bank-shards 2``: refused on one card with the JAX
      CLI's message, run and held to the one-card J&F on two or more;
- 14. float32 inference (``SVOS_INFER_DTYPE=float32``): (a) the float32 bank
-     kernel (``csrc/affinity_bank_f32.cu``) against its plain version at
-     480p, B = 1 and 8, probability mode, a ragged P and K = 1, four stats
-     shards combined against the unsharded kernel, timed beside the FP32
-     bound and float32 ``scaled_dot_product_attention``; (b) the float32
-     bottleneck (``csrc/bottleneck_f32.cu``) against its plain version with
-     TF32 off at 8 and 64 frames, beside three float32 cuDNN convolutions;
+ 14. float32 inference (``SVOS_INFER_DTYPE=float32``): both float32
+     kernels run tf32 ``wgmma`` (3xTF32; ``cuobjdump -sass``); (a) the
+     float32 bank kernel (``csrc/affinity_bank_f32.cu``) against its plain
+     version at 480p, B = 1 and 8, probability mode, a ragged P and K = 1,
+     four stats shards combined against the unsharded kernel, timed beside
+     the 3xTF32 and FFMA bounds and, in turns, float32
+     ``scaled_dot_product_attention``; (b) the float32 bottleneck
+     (``csrc/bottleneck_f32.cu``, weights split at fold time) against its
+     plain version with TF32 off at 8 and 64 frames, in turns with three
+     float32 cuDNN convolutions;
      (c) the float32 encoder of resnet50 and facebook against the float32
      module on the CPU; (d) the main path through the CLI: only the float32
      kernels launch, fps and engine ms/frame beside bf16's, card vs CPU
@@ -119,6 +122,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense tf32 tensor-core rate (3xTF32: three products)
 MUFU_EXP_PER_CLOCK_PER_SM = 16  # ex2 results per clock per SM on compute capability 9.0
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 AFFINITY_GATE = 3.4e-5  # max_abs of the bank kernel vs float32 (JAX on-chip gate)
@@ -205,12 +209,15 @@ def mufu_exp_rate() -> float:
     return MUFU_EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
-def bound(tensor_ops: float, nbytes: float, exps: float = 0.0, peak: float = PEAK_BF16_FLOPS):
+def bound(tensor_ops, nbytes: float, exps: float = 0.0, peak: float = PEAK_BF16_FLOPS):
     """Least time (ms) for the work, and what sets it: the largest of the
     operations at their peak rate (``peak``: bf16 tensor cores, or
-    PEAK_F32_FLOPS for float32 work), the exps at the MUFU pipe's rate (both
-    "operations") and the bytes at the memory rate."""
-    t_tensor = tensor_ops / peak * 1e3
+    PEAK_F32_FLOPS / PEAK_TF32_FLOPS for float32 work; ``tensor_ops`` may
+    also be a list of (operations, rate) pairs, whose times add), the exps
+    at the MUFU pipe's rate (both "operations") and the bytes at the memory
+    rate."""
+    terms = tensor_ops if isinstance(tensor_ops, (list, tuple)) else [(tensor_ops, peak)]
+    t_tensor = sum(ops / rate for ops, rate in terms) * 1e3
     t_exp = exps / mufu_exp_rate() * 1e3 if exps else 0.0
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = max(t_tensor, t_exp)
@@ -223,19 +230,24 @@ def check(cond: bool, what: str) -> None:
     log(f"  ok: {what}")
 
 
-def affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes, peak: float = PEAK_BF16_FLOPS):
+def affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes, peak: float = PEAK_BF16_FLOPS,
+                   products: int = 1):
     """Least time (ms) of one propagation of a P-pixel frame over K slots,
     counting the work this frame's data needs: the similarity (2·K·P²·C)
     and the softmax exp of every pair; the label product (2·D a pair) where
     the prior is not below exp(-36), which is every pair in probability
     mode (inverse sigma² 0); the prior factored into a row and a column
-    factor, 2·P − 1 + 2·wd − 1 exps for each slot that has one."""
+    factor, 2·P − 1 + 2·wd − 1 exps for each slot that has one. With
+    ``products`` 3 (float32 accuracy on tf32 tensor cores, ``peak``
+    PEAK_TF32_FLOPS) the similarity counts three times at ``peak`` and the
+    label product twice (bf16 hi and lo) at the bf16 rate."""
     y = torch.arange(p, device=dev, dtype=torch.float32) / wd
     dy2 = (y[:, None] - y[None, :]) ** 2
     near = [int((dy2 * float(s) < 36.0).sum()) for s in inv_sigma2]
-    ops = 2.0 * k * p * p * c + 2.0 * sum(near) * d
+    sim, lab = 2.0 * k * p * p * c, 2.0 * sum(near) * d
+    terms = [(sim + lab, peak)] if products == 1 else [(products * sim, peak), (2 * lab, PEAK_BF16_FLOPS)]
     exps = k * p * p + sum(2 * p - 1 + 2 * wd - 1 for s in inv_sigma2 if s > 0)
-    return bound(ops, nbytes, exps, peak)
+    return bound(terms, nbytes, exps)
 
 
 # ---- phase 2: affinity ---------------------------------------------------
@@ -1890,8 +1902,8 @@ def f32_bank_kernel(torch, dev, rng):
     its plain version at 480p (K 9, P 6420, C 256, float32 bank, bf16
     labels): B = 1 with the prior and in probability mode, B = 8 lane by
     lane, a ragged P and K = 1; four float32 stats shards combined against
-    the unsharded kernel; timed against the FP32 bound, and in probability
-    mode beside float32 ``scaled_dot_product_attention``."""
+    the unsharded kernel; timed against the 3xTF32 and FFMA bounds, and in
+    probability mode in turns with float32 ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
 
     from semi_supervised_vos_tpu_torch.core.sampling import sample_frames
@@ -1953,16 +1965,23 @@ def f32_bank_kernel(torch, dev, rng):
     whole = aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw)
     compare(f"{n} stats shards + combine vs the unsharded kernel", run_sharded(), whole, STATS_GATE)
 
-    # times at 480p, beside the FP32 bound and the plain version
+    # times at 480p, beside the 3xTF32 bound (three tf32 products of the
+    # similarity, the bf16 hi / lo label product, the exps, the bytes), the
+    # FFMA bound and the plain version
     _, inv_sigma2, _ = aff.slot_table(slots, valid, dense, 8.0, 21.0, True)
     nbytes = k * p * (c * 4 + d_pad * 2) + p * c * 4 + d_pad * p * 4
-    b_ms, b_by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes, PEAK_F32_FLOPS)
-    prob_b_ms, prob_b_by = affinity_bound(torch, dev, k, p, wd, c, d, np.zeros(k), nbytes, PEAK_F32_FLOPS)
-    ms = time_ms(lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw))
+    b_ms, b_by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes, PEAK_TF32_FLOPS, products=3)
+    prob_b_ms, prob_b_by = affinity_bound(torch, dev, k, p, wd, c, d, np.zeros(k), nbytes, PEAK_TF32_FLOPS,
+                                          products=3)
+    ffma_ms, _ = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes, PEAK_F32_FLOPS)
+    run = lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw)  # noqa: E731
+    ms_turns = [time_ms(run)]
     plain_ms = time_ms(lambda: aff.affinity_from_bank_plain(feats, labels, tgt, slots, **kw))
     b8_ms = time_ms(lambda: aff.affinity_from_bank_batched(feats8, labels8, tgt8, slots, **kw), reps=10)
     sharded_ms = time_ms(run_sharded)
-    prob_ms = time_ms(lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, spatial=False, **kw))
+    ms_turns.append(time_ms(run))
+    ms = min(ms_turns, key=float)
+    run_prob = lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, spatial=False, **kw)  # noqa: E731
     # probability mode: float32 attention over the valid slots' rows
     sel = torch.as_tensor(slots[valid], device=dev)
     q, keys = tgt[:, None], feats[sel, 0].reshape(1, 1, -1, c)
@@ -1971,15 +1990,19 @@ def f32_bank_kernel(torch, dev, rng):
     expect = aff.affinity_from_bank_plain(feats, labels, tgt, slots, spatial=False, **kw)[0, :d]
     sdpa_err = (run_library()[0, 0, :, :d].T - expect).abs().max().item()
     check(sdpa_err <= SDPA_GATE, f"float32 scaled_dot_product_attention agrees with the plain version <= {SDPA_GATE}")
-    library_ms = time_ms(run_library)
-    log(f"14a float32 bank kernel 480p: B=1 {ms:.4f} ms, plain {plain_ms:.4f} ms, FP32 bound {b_ms:.4f} ms ({b_by}); "
-        f"B=8 {b8_ms:.4f} ms; {n} stats shards + combine {sharded_ms:.4f} ms; probability mode {prob_ms:.4f} ms, "
-        f"float32 scaled_dot_product_attention {library_ms:.4f} ms (max_abs vs plain {sdpa_err:.3e}), bound "
-        f"{prob_b_ms:.4f} ms; kernel / library {prob_ms / library_ms:.3f}")
+    # kernel and library in turns: kernel, library, library, kernel
+    turns = [time_ms(run_prob), time_ms(run_library), time_ms(run_library), time_ms(run_prob)]
+    prob_ms, library_ms = min(turns[0], turns[3], key=float), min(turns[1], turns[2], key=float)
+    log(f"14a float32 bank kernel 480p: B=1 {ms_turns[0]:.4f} / {ms_turns[1]:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"3xTF32 bound {b_ms:.4f} ms ({b_by}), FFMA bound {ffma_ms:.4f} ms; B=8 {b8_ms:.4f} ms; {n} stats shards + "
+        f"combine {sharded_ms:.4f} ms; probability mode {turns[0]:.4f} / {turns[3]:.4f} ms, float32 "
+        f"scaled_dot_product_attention {turns[1]:.4f} / {turns[2]:.4f} ms (max_abs vs plain {sdpa_err:.3e}), "
+        f"bound {prob_b_ms:.4f} ms; kernel / library {prob_ms / library_ms:.3f}; kernel / FFMA bound "
+        f"{ms / ffma_ms:.3f}")
     del feats8, labels8, tgt8, got8
     return dict(max_abs_err=worst, **timing_keys("ms", ms), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, b8_ms=b8_ms, b8_bound_ms=8 * b_ms, stats4_ms=sharded_ms, prob_ms=prob_ms,
-                prob_bound_ms=prob_b_ms, prob_bound_by=prob_b_by, prob_library_ms=library_ms)
+                ffma_bound_ms=ffma_ms, library_ms=None, b8_ms=b8_ms, b8_bound_ms=8 * b_ms, stats4_ms=sharded_ms,
+                prob_ms=prob_ms, prob_bound_ms=prob_b_ms, prob_bound_by=prob_b_by, prob_library_ms=library_ms)
 
 
 def f32_bottleneck_kernel(torch, dev, rng):
@@ -1990,7 +2013,8 @@ def f32_bottleneck_kernel(torch, dev, rng):
     8 at C 1024)."""
     import torch.nn.functional as F
 
-    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block, bottleneck_block_plain
+    from semi_supervised_vos_tpu_torch.ops.bottleneck import (bottleneck_block, bottleneck_block_plain,
+                                                              tf32_split_weights)
 
     def library_block(x, k1, b1, k2, b2, k3, b3):
         y = torch.relu(F.conv2d(x, k1, b1))
@@ -2001,7 +2025,7 @@ def f32_bottleneck_kernel(torch, dev, rng):
           "14b runs with TF32 off")
     h, w = 60, 107
     worst = 0.0
-    per_call = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for n in (8, 64)}
+    per_call = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ffma_bound_ms=0.0) for n in (8, 64)}
     by = None
     before = bottleneck_block.launches
     for cc, c4, blocks in ((512, 128, 3), (1024, 256, 8)):
@@ -2011,36 +2035,46 @@ def f32_bottleneck_kernel(torch, dev, rng):
             scales = [math.sqrt(2 / cc), 0.1, math.sqrt(2 / (9 * c4)), 0.1, math.sqrt(2 / c4), 0.1]
             wts = [torch.as_tensor(rng.standard_normal(sh) * sc, dtype=torch.float32).to(dev)
                    for sh, sc in zip(shapes, scales)]
-            got = bottleneck_block(x, *wts)
+            planes = tf32_split_weights(wts[0], wts[2], wts[4])  # as a folded table holds them
+            got = bottleneck_block(x, *wts, planes=planes)
             expect = bottleneck_block_plain(x, *wts)
             rel = ((got - expect).abs().max() / expect.abs().max()).item()
             worst = max(worst, (got - expect).abs().max().item())
+            check(torch.equal(bottleneck_block(x, *wts), got), "float32 bottleneck: planes made per call or at fold "
+                  "time give the same output")
             del got, expect
             xl = x.permute(0, 3, 1, 2)
             lib = [wts[0].t()[:, :, None, None].contiguous(memory_format=torch.channels_last), wts[1],
                    wts[2].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last), wts[3],
                    wts[4].t()[:, :, None, None].contiguous(memory_format=torch.channels_last), wts[5]]
             reps = 20 if n == 8 else 5
-            ms = time_ms(lambda: bottleneck_block(x, *wts), reps=reps)
+            run = lambda: bottleneck_block(x, *wts, planes=planes)  # noqa: E731
+            run_library = lambda: library_block(xl, *lib)  # noqa: E731
+            # kernel and library in turns: kernel, library, library, kernel
+            turns = [time_ms(run, reps=reps), time_ms(run_library, reps=reps), time_ms(run_library, reps=reps),
+                     time_ms(run, reps=reps)]
+            ms, library_ms = min(turns[0], turns[3], key=float), min(turns[1], turns[2], key=float)
             plain_ms = time_ms(lambda: bottleneck_block_plain(x, *wts), reps=reps)
-            library_ms = time_ms(lambda: library_block(xl, *lib), reps=reps)
             ops = 2.0 * n * h * w * (cc * c4 + 9 * c4 * c4 + c4 * cc)
             nbytes = 4 * (2 * n * h * w * cc + 2 * cc * c4 + 9 * c4 * c4 + 2 * c4 + cc)
-            b_ms, b_by = bound(ops, nbytes, peak=PEAK_F32_FLOPS)
+            b_ms, b_by = bound(3 * ops, nbytes, peak=PEAK_TF32_FLOPS)  # 3xTF32: three tf32 products
+            ffma_ms, _ = bound(ops, nbytes, peak=PEAK_F32_FLOPS)
             by = b_by if (cc, n) == (1024, 8) else by
-            log(f"14b float32 bottleneck N={n} C={cc} C4={c4}: max_abs/max_ref={rel:.3e}; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, three float32 cuDNN convolutions {library_ms:.4f} ms, FP32 bound "
-                f"{b_ms:.4f} ms ({b_by})")
+            log(f"14b float32 bottleneck N={n} C={cc} C4={c4}: max_abs/max_ref={rel:.3e}; kernel {turns[0]:.4f} / "
+                f"{turns[3]:.4f} ms, plain {plain_ms:.4f} ms, three float32 cuDNN convolutions {turns[1]:.4f} / "
+                f"{turns[2]:.4f} ms, 3xTF32 bound {b_ms:.4f} ms ({b_by}), FFMA bound {ffma_ms:.4f} ms")
             check(rel <= 1e-4, f"float32 bottleneck N={n} C={cc}: max error <= 1e-4 of the largest output")
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms), ("bound_ms", b_ms)):
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms), ("bound_ms", b_ms),
+                           ("ffma_bound_ms", ffma_ms)):
                 per_call[n][key] += blocks * v
             del x, xl
     check(bottleneck_block.launches == before, "float32 activations launch no bf16 bottleneck kernel")
     c8, c64 = per_call[8], per_call[64]
     log(f"14b float32 bottleneck per resnet50 encode call (11 launches): N=8 kernel {c8['ms']:.4f} ms, plain "
-        f"{c8['plain_ms']:.4f} ms, library {c8['library_ms']:.4f} ms, FP32 bound {c8['bound_ms']:.4f} ms; N=64 kernel "
-        f"{c64['ms']:.4f} ms, library {c64['library_ms']:.4f} ms, bound {c64['bound_ms']:.4f} ms; kernel / library "
-        f"{c8['ms'] / c8['library_ms']:.3f} (N=8), {c64['ms'] / c64['library_ms']:.3f} (N=64)")
+        f"{c8['plain_ms']:.4f} ms, library {c8['library_ms']:.4f} ms, 3xTF32 bound {c8['bound_ms']:.4f} ms, FFMA "
+        f"bound {c8['ffma_bound_ms']:.4f} ms; N=64 kernel {c64['ms']:.4f} ms, library {c64['library_ms']:.4f} ms, "
+        f"bound {c64['bound_ms']:.4f} ms; kernel / library {c8['ms'] / c8['library_ms']:.3f} (N=8), "
+        f"{c64['ms'] / c64['library_ms']:.3f} (N=64)")
     return dict(max_abs_err=worst, bound_by=by, **c8, n64_ms=c64["ms"], n64_library_ms=c64["library_ms"],
                 n64_bound_ms=c64["bound_ms"])
 
@@ -2187,10 +2221,31 @@ def profiling_run(torch, work: Path):
     return dict(report=report[0], trace_bytes=len(text), seconds=wall)
 
 
+def tf32_wgmma_in_sass() -> dict:
+    """Per float32 kernel, its library's warpgroup products by form, from
+    ``cuobjdump -sass`` (3xTF32 shows as ``HGMMA.*.TF32``)."""
+    import collections
+    import re
+
+    from semi_supervised_vos_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    out = {}
+    for name in ("affinity_bank_f32", "bottleneck_f32"):
+        sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        out[name] = dict(collections.Counter(re.findall(r"\bHGMMA\.\S+", sass)))
+    return out
+
+
 def float32_phase(torch, dev, rng, work: Path, net, videos: dict, lockstep_videos: dict, bf16: dict):
     """Phase 14: float32 inference on the card (``SVOS_INFER_DTYPE=float32``)."""
     frames, _ = load_video(work, "davis", "long", 1)
-    res = {"bank": f32_bank_kernel(torch, dev, rng), "bottleneck": f32_bottleneck_kernel(torch, dev, rng)}
+    sass = tf32_wgmma_in_sass()
+    log(f"14 float32 kernels' warpgroup products (cuobjdump -sass): {sass}")
+    check(all(any(form.endswith(".TF32") for form in forms) for forms in sass.values()),
+          "both float32 kernels run tf32 wgmma (3xTF32)")
+    res = {"sass_hgmma": sass, "bank": f32_bank_kernel(torch, dev, rng), "bottleneck": f32_bottleneck_kernel(torch, dev, rng)}
     res["encoder_min_cosine"] = {arch: f32_encoder(torch, dev, arch, frames[0]) for arch in ("resnet50", "facebook")}
     res["main_path"] = f32_main_path(torch, dev, work, net, videos, bf16)
     res["lockstep"] = f32_lockstep(torch, dev, work, net, lockstep_videos)
@@ -2227,7 +2282,7 @@ def main() -> int:
         + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
-            if any(key in line for key in ("Compiling entry", "registers", "spill", "smem")):
+            if any(key in line for key in ("Compiling entry", "registers", "spill", "smem", "Performance Loss")):
                 log(f"  {name} ptxas: {line.strip()}")
 
     rng = np.random.default_rng(0)

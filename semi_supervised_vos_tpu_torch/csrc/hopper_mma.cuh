@@ -1,7 +1,10 @@
 // Tensor-core and copy primitives shared by the port's kernels (sm_90a):
-// 16-byte cp.async copies into shared memory, mbarriers and TMA tile loads,
-// ldmatrix fragment loads, the bf16 m16n8k16 mma.sync and the m64n64k16
-// warpgroup product (wgmma), both with float32 accumulators.
+// 16-byte cp.async copies into shared memory, mbarriers, named barriers and
+// TMA tile loads, ldmatrix fragment loads, the bf16 m16n8k16 mma.sync, the
+// bf16 m64n64k16 warpgroup product (wgmma), and for the float32 kernels the
+// tf32 split (3xTF32) and the tf32 m64n64k8 / m64n128k8 wgmma with
+// descriptors of the swizzled K-major layouts, all with float32
+// accumulators.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major), 4 regs of bf16x2:
@@ -104,6 +107,16 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// One plain arrival on `bar`.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Waits for the phase of `bar` with the given parity to complete. A copy
 // that never lands traps after ~2 s of waiting instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -157,6 +170,16 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
          (uint64_t((sbo >> 4) & 0x3FFF) << 32);
 }
 
+// K-major operand in the swizzled layout that a TMA box of 64- or 128-byte
+// rows writes (CU_TENSOR_MAP_SWIZZLE_64B / _128B; `mode` 2 or 1): 8-row
+// groups `sbo` bytes apart (8 x the row width), no leading offset. The
+// start may step along K inside a row (32 bytes a tf32 k8 step, as a bf16
+// k16 step); the 8-row atoms must be aligned to their own size.
+__device__ __forceinline__ uint64_t smem_desc_swizzled(const void* p, uint32_t sbo, uint32_t mode) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t((sbo >> 4) & 0x3FFF) << 32) |
+         (uint64_t(mode) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N>
@@ -195,11 +218,99 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4], const uint32_t
 
 // Pins accumulator registers in place around asynchronous wgmma: no read
 // or write of them moves across this point.
-__device__ __forceinline__ void fence_operands(float (&d)[8][4]) {
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N][4]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+}
+
+// ---- 3xTF32: float32-accurate products on the tf32 tensor cores ----------
+//
+// a = big + small with big = tf32(a) and small = tf32(a - big), both
+// rounded to nearest (cvt.rna: wgmma itself would truncate the 13 low
+// bits); a . b ~ small . big' + big . small' + big . big', each term exact
+// to ~2^-22 relative, accumulated in float32. tf32 operands of wgmma are
+// K-major only (no transpose for 32-bit types): a core matrix is 8 rows x 4
+// values (16 bytes), so the descriptors of smem_desc hold as for bf16, and
+// a k8 step spans two core matrices along K, as a bf16 k16 step does.
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d (64 x 64 per warpgroup, f32) = a . b (+ d if accumulate), tf32: A
+// (64 x 8) from registers, each warp holding its 16 rows as an
+// mma.m16n8k8 tf32 A fragment (a[0] = (row g, k t), a[1] = (g + 8, t),
+// a[2] = (g, t + 4), a[3] = (g + 8, t + 4)); B (8 x 64) K-major from
+// shared memory. Accumulators as wgmma_m64n64k16's.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc_b,
+                                                    bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %37, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(int(accumulate)), "l"(desc_b));
+}
+
+// The same with A (64 x 8) K-major from shared memory by descriptor.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
+                                                       bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %32, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "%33, %34, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(int(accumulate)), "l"(desc_a), "l"(desc_b));
+}
+
+// d (64 x 128 per warpgroup, f32) = a . b (+ d), tf32, A from registers as
+// in wgmma_m64n64k8_tf32; d[n] is n-tile n (columns 8 n..8 n + 7).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[16][4], const uint32_t (&a)[4], uint64_t desc_b,
+                                                     bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "{%64,%65,%66,%67}, %69, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]),
+        "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]),
+        "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(int(accumulate)), "l"(desc_b));
 }
 
 // Two floats -> bf16x2 (round to nearest even), `lo` in the low half.

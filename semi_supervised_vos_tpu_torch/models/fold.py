@@ -15,6 +15,7 @@ from torch import nn
 
 from semi_supervised_vos_tpu_torch.models.resnet import Bottleneck
 from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
+from semi_supervised_vos_tpu_torch.ops.bottleneck import KERNEL_C4, tf32_split_weights
 
 BN_EPS = 1e-5  # torch BatchNorm2d default
 
@@ -40,7 +41,11 @@ def fold_vosnet(net: VOSNet, dtype=torch.bfloat16) -> Dict[str, object]:
     ``head0/{kernel,bias}``, the bare 2048 → 1024 ``adjust_dim.0`` with a
     zero bias), and for every bottleneck block without a downsample branch
     ``layer<S>_<B>/fused``: the fused kernel's operands (w1 (C, C4), b1,
-    w2 (3, 3, C4, C4) HWIO, b2, w3 (C4, C), b3), prepared once here.
+    w2 (3, 3, C4, C4) HWIO, b2, w3 (C4, C), b3), prepared once here; in a
+    float32 table, where C4 is a width the kernel takes (``KERNEL_C4``),
+    also ``layer<S>_<B>/fused_tf32``: those weights K-major and split into
+    tf32 big / small planes (:func:`~semi_supervised_vos_tpu_torch.ops.
+    bottleneck.tf32_split_weights`), the kernel's 3xTF32 operands.
     """
     seq = net.backbone
     out: Dict[str, object] = {}
@@ -68,6 +73,9 @@ def fold_vosnet(net: VOSNet, dtype=torch.bfloat16) -> Dict[str, object]:
                     k2.permute(2, 3, 1, 0).to(dtype).contiguous(), b2,
                     k3[:, :, 0, 0].t().to(dtype).contiguous(), b3,
                 )
+                if dtype == torch.float32 and k1.shape[0] in KERNEL_C4:
+                    w1, _, w2, _, w3, _ = out[f"{name}/fused"]
+                    out[f"{name}/fused_tf32"] = tf32_split_weights(w1, w2, w3)
     if net.model == "facebook":
         k0 = net.adjust_dim[0].weight.detach().float()
         out["head0/kernel"] = k0.to(dtype).contiguous(memory_format=torch.channels_last)

@@ -122,7 +122,8 @@ def fast_encode(
         c = x.shape[1]
         if downsample or stride != 1 or c < 512 or c > 1024:
             return _bottleneck(x, table, name, stride, downsample)
-        y = bottleneck_block(x.permute(0, 2, 3, 1).contiguous(), *table[f"{name}/fused"])
+        y = bottleneck_block(x.permute(0, 2, 3, 1).contiguous(), *table[f"{name}/fused"],
+                             planes=table.get(f"{name}/fused_tf32"))
         return y.permute(0, 3, 1, 2)
 
     x = x.float().permute(0, 3, 1, 2)  # channels-last NCHW view

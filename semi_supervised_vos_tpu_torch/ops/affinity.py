@@ -9,8 +9,9 @@ over blocks and a second kernel of the same source combines the partial
 statistics (:func:`combine_partials`, plain version
 :func:`combine_partials_plain`); one op call is one count. A float32 bank
 (``SVOS_INFER_DTYPE=float32``) runs the bank sweep of
-``csrc/affinity_bank_f32.cu`` instead (float32 similarity, the same split
-plan and combine kernel), counted apart in
+``csrc/affinity_bank_f32.cu`` instead (a float32-accurate similarity on
+the tf32 tensor cores, 3xTF32; the same split plan and combine kernel),
+counted apart in
 ``affinity_from_bank_batched.launches_f32``.
 
 * ``affinity_from_bank_batched`` (and its ``affinity_from_bank`` /

@@ -85,14 +85,16 @@ def _to(tree, dev: torch.device):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to(v, dev) for v in tree)
+        items = [_to(v, dev) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)  # a named tuple takes fields
     return tree
 
 
 def replicate(mesh: Mesh, tree) -> Dict[torch.device, object]:
-    """One copy of ``tree`` (a tensor, or dicts, lists and tuples of them:
-    the folded encoder table) on each distinct device of the mesh, keyed by
-    device. A copy already on a device is the same object there."""
+    """One copy of ``tree`` (a tensor, or dicts, lists and tuples, named
+    tuples too, of them: the folded encoder table) on each distinct device
+    of the mesh, keyed by device. A copy already on a device is the same
+    object there."""
     return {dev: _to(tree, dev) for dev in mesh.distinct_devices}
 
 

@@ -577,6 +577,70 @@ def test_f32_bottleneck_kernel_matches_plain(card, nprng, monkeypatch, n, h, w, 
     assert (got - expect).abs().max() <= 1e-4 * expect.abs().max()
 
 
+@pytest.mark.parametrize(
+    "c,d_pad,n_cls,hd,wd,row_base,stats",
+    [(256, 8, 6, 16, 20, 0, False), (256, 16, 13, 16, 20, 0, False), (256, 24, 22, 13, 27, 0, False),
+     (256, 48, 40, 16, 20, 0, False), (128, 24, 22, 16, 20, 0, False), (48, 16, 13, 13, 27, 0, False),
+     (256, 16, 13, 60, 107, 3210, True), (256, 8, 6, 16, 20, 107, True)],
+)
+def test_f32_bank_kernel_label_groups_and_widths(card, nprng, c, d_pad, n_cls, hd, wd, row_base, stats):
+    """The 3xTF32 bank kernel over every label group (8, 16, 24 columns,
+    and two sweeps at d_pad 48), feature widths below 256 (the chunks past
+    C run on zeros), ragged widths (27, 107) and row_base shards, against
+    its float32 plain version."""
+    cap, k, b = 45, 9, 1
+    p = hd * wd
+    _, labels = _bank(nprng, card, cap, b, p - row_base, c, d_pad, n_cls)
+    feats = torch.as_tensor(nprng.standard_normal((cap, b, p - row_base, c)) * 0.2, dtype=torch.float32,
+                            device=card)
+    tgt = torch.as_tensor(nprng.standard_normal((b, p, c)) * 0.2, dtype=torch.float32, device=card)
+    idx, valid, dense = sample_frames(50, 40, k)
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense, row_base=row_base, return_stats=stats)
+    before = tap.affinity_from_bank_batched.launches_f32
+    got = tap.affinity_from_bank_batched(feats, labels, tgt, idx % cap, **kw)
+    torch.cuda.synchronize()
+    assert tap.affinity_from_bank_batched.launches_f32 == before + 1
+    expect = tap.affinity_from_bank_plain(feats, labels, tgt, idx % cap, **kw)
+    got = got if stats else (got,)
+    expect = expect if stats else (expect,)
+    for g, e in zip(got, expect):
+        torch.testing.assert_close(g, e, rtol=1e-4, atol=3.4e-5)
+    if not stats:
+        assert (got[0][:, :n_cls].argmax(1) == expect[0][:, :n_cls].argmax(1)).all()
+        assert (got[0][:, n_cls:] == 0).all()
+
+
+@pytest.mark.parametrize("arch", ["resnet101", "facebook"])
+def test_f32_bottleneck_fold_tables_match_plain(card, nprng, monkeypatch, arch):
+    """Every fused block of a float32 fold table (resnet101: 28 blocks at C
+    512 / 1024; facebook: 8) through ``csrc/bottleneck_f32.cu`` with the
+    table's fold-time tf32 planes, at the 480p geometry (60 x 107), against
+    the plain version with TF32 off: max error <= 1e-4 of the largest
+    output; the planes reassemble to the table's weights."""
+    from semi_supervised_vos_tpu_torch.models.fold import fold_vosnet
+    from semi_supervised_vos_tpu_torch.models.resnet import init_weights
+    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    net = VOSNet(arch).eval()
+    init_weights(net, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        table = fold_vosnet(net.to(card), torch.float32)
+    names = sorted(k.split("/")[0] for k in table if k.endswith("/fused_tf32"))
+    assert len(names) == {"resnet101": 28, "facebook": 8}[arch]
+    for name in names:
+        w1, b1, w2, b2, w3, b3 = table[f"{name}/fused"]
+        planes = table[f"{name}/fused_tf32"]
+        c, c4 = w1.shape
+        assert (planes.w1.sum(0) - w1.t()).abs().max() <= 2.0**-21 * w1.abs().max()
+        x = torch.as_tensor(np.maximum(nprng.standard_normal((1, 60, 107, c)), 0), dtype=torch.float32, device=card)
+        got = tb.bottleneck_block(x, w1, b1, w2, b2, w3, b3, planes=planes)
+        torch.cuda.synchronize()
+        expect = tb.bottleneck_block_plain(x, w1, b1, w2, b2, w3, b3)
+        assert (got - expect).abs().max() <= 1e-4 * expect.abs().max(), name
+
+
 @pytest.mark.parametrize("flags", [(True, True), (False, False)])
 def test_f32_engines_one_step(card, nprng, flags):
     """A float32 single engine and a float32 lockstep engine (resnet50), one
