@@ -95,13 +95,28 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
      kernels launch, fps and engine ms/frame beside bf16's, card vs CPU
      masks; (e) ``--video-batch 8``, one resnet50 chunk at the float32 lane
      cap at 480p and 1080p, dp 2 x bank 2 on the virtual mesh; (f)
-     ``SVOS_FAST_ENCODER=0``; (g) ``SVOS_PROFILE`` and ``SVOS_TRACE_DIR``.
+     ``SVOS_FAST_ENCODER=0``; (g) ``SVOS_PROFILE`` and ``SVOS_TRACE_DIR``;
+ 15. the native host loaders and training over a mesh: (a) the native
+     mask upsampler (``csrc/host/upsample.cpp``) is on, the main path's
+     PNGs are byte-equal with ``SVOS_NATIVE_UPSAMPLE=0`` and ``=1``, the
+     JPEG decoder's state under ``SVOS_NATIVE_DECODE=1`` (its frames
+     byte-equal to PIL's when it is on), host ms of decoding the main
+     path's 65 frames and upsampling its masks both ways; (b) the mesh
+     train step at full width (resnet50, bs 16 x 10 frames x 256^2) on a
+     virtual mesh naming the card, DP 4 and data 2 x model 2, each beside
+     the single-device step from the same weights and batch, TF32 off:
+     loss within 1e-4 relative, the conv1 update's cosine >= 0.999, the
+     largest BN running-statistic difference, ms a step (on one card the
+     mesh's overhead, not a scaling) and peak memory under 0.85 of the
+     card; (c) ``train --tp 2`` on ``[card] * 2`` for 2 epochs on phase
+     11's tree, ``validation`` on its checkpoints over ``[card] * 2``, and
+     ``parallel/dryrun.py::dryrun_multichip([card] * 4)``, with launches.
 
 Times are medians of 20 CUDA-event timings, printed with their p10-p90
 spread. The line before the last is the card's name and power limit as
 nvidia-smi reports them, the one before that a JSON summary of every
 kernel, and before that JSON lines for the strategies, the lockstep phase,
-training, facebook, the mesh phase and float32.
+training, facebook, the mesh phase, float32 and phase 15.
 """
 
 from __future__ import annotations
@@ -2254,6 +2269,237 @@ def float32_phase(torch, dev, rng, work: Path, net, videos: dict, lockstep_video
     return res
 
 
+# ---- phase 15: native host loaders, training over a mesh, the mesh CLIs --
+
+
+def native_loaders(torch, work: Path, videos: dict):
+    """15a: the native upsampler is on; the main path's PNGs with it off and
+    on are byte-equal; the decoder's state (``SVOS_NATIVE_DECODE=1``) and,
+    when it is on, the main path's frames byte-equal to PIL's; host ms of
+    decoding the main path's frames (PIL, native) and of upsampling its
+    masks (numpy, native)."""
+    from io import BytesIO
+
+    from PIL import Image
+
+    from semi_supervised_vos_tpu_torch.data import native_decode
+    from semi_supervised_vos_tpu_torch.ops import native_upsample
+    from semi_supervised_vos_tpu_torch.ops.resize import nearest_resize_host
+
+    check(native_upsample.available(), f"the native upsampler is on ({native_upsample.reason or 'built, checked'})")
+    tree, ckpt = work / "davis", work / "resnet50.pth.tar"
+    runs = {}
+    for flag in ("1", "0"):
+        with infer_dtype("bfloat16", SVOS_NATIVE_UPSAMPLE=flag):
+            native_upsample._state = None
+            save = work / f"native_upsample_{flag}"
+            wall, launches = cli_run(torch, ["inference", "-d", str(tree), "-r", str(ckpt), "-s", str(save)])
+            runs[flag] = dict(seconds=wall, launches=launches, engaged=native_upsample.available())
+    native_upsample._state = None
+    check(runs["1"]["engaged"] and not runs["0"]["engaged"], "SVOS_NATIVE_UPSAMPLE=1 engages the upsampler, =0 not")
+    n_frames = sum(videos.values())
+    pngs = [(v, f"{t:05d}.png") for v, n in videos.items() for t in range(n)]
+    same = all((work / "native_upsample_1" / v / p).read_bytes() == (work / "native_upsample_0" / v / p).read_bytes()
+               for v, p in pngs)
+    log(f"15a main path with the native upsampler on: {runs['1']['seconds']:.3f} s, off: {runs['0']['seconds']:.3f} s "
+        f"({n_frames} frames); launches on {runs['1']['launches']}")
+    check(same and len(pngs) == n_frames, f"the main path's {n_frames} PNGs byte-equal with SVOS_NATIVE_UPSAMPLE=0 and 1")
+    check(runs["1"]["launches"]["affinity_bank"] == n_frames - len(videos) and runs["1"]["launches"]["bottleneck"] > 0,
+          "the main path under the native upsampler launches both kernels")
+
+    blobs = [(tree / "JPEGImages" / "480p" / v / f"{t:05d}.jpg").read_bytes() for v, n in videos.items()
+             for t in range(n)]
+    pil_decode = lambda: [np.asarray(Image.open(BytesIO(b)).convert("RGB")) for b in blobs]  # noqa: E731
+    pil = pil_decode()
+    host = {"decode_pil_ms": _host_ms(pil_decode)}
+    saved = os.environ.get("SVOS_NATIVE_DECODE")
+    os.environ["SVOS_NATIVE_DECODE"] = "1"
+    native_decode._state = None
+    try:
+        decoder_on = native_decode.available()
+        if decoder_on:
+            got = native_decode.decode_jpeg_batch(blobs)
+            check(all(np.array_equal(g, p) for g, p in zip(got, pil)),
+                  f"the native decoder's {len(blobs)} main-path frames byte-equal to PIL's")
+            host["decode_native_ms"] = _host_ms(lambda: native_decode.decode_jpeg_batch(blobs))
+            host["decode_native_one_thread_ms"] = _host_ms(lambda: [native_decode.decode_jpeg(b) for b in blobs])
+    finally:
+        native_decode._state = None
+        if saved is None:
+            os.environ.pop("SVOS_NATIVE_DECODE")
+        else:
+            os.environ["SVOS_NATIVE_DECODE"] = saved
+    log(f"15a native JPEG decoder: {'on' if decoder_on else 'off: ' + native_decode.reason}")
+    small = [nearest_resize_host(np.asarray(Image.open(work / "native_upsample_1" / v / p)), (60, 107))
+             for v, p in pngs]
+    small = np.stack(small)[:, None]  # (T, 1, 60, 107): the drain's layout
+    want = native_upsample._numpy_twin(small, (H480, W480))
+    check(np.array_equal(native_upsample.nearest_u8(small, (H480, W480)), want),
+          "native upsampler byte-equal to numpy on the main path's masks")
+    host["upsample_numpy_ms"] = _host_ms(lambda: native_upsample._numpy_twin(small, (H480, W480)))
+    host["upsample_native_ms"] = _host_ms(lambda: native_upsample.nearest_u8(small, (H480, W480)))
+    log(f"15a host ms over the main path's {len(blobs)} frames (median of 5, {os.cpu_count()} cores): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+    return dict(upsampler="on", decoder="on" if decoder_on else "off", decoder_reason=native_decode.reason,
+                frames=len(blobs), cores=os.cpu_count(), png_equal=same, launches=runs["1"]["launches"],
+                cli_seconds_native=runs["1"]["seconds"], cli_seconds_numpy=runs["0"]["seconds"], **host)
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host ms of ``fn`` over ``reps`` calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+MESH_TRAIN_SHAPES = {"dp 4": (4, 1), "data 2 x model 2": (2, 2)}
+MESH_LOSS_RTOL = 1e-4
+MESH_MIN_COS = 0.999
+MESH_TRAIN_REPS = 3
+
+
+def mesh_training(torch, dev, work: Path):
+    """15b: the mesh train step at full width (resnet50, bs 16 x 10 frames x
+    256^2) on virtual meshes naming the card, each beside the single-device
+    step from the same weights and batch, TF32 off: loss, the conv1
+    update's cosine, the largest BN running-statistic difference, device ms
+    a step, peak memory."""
+    from semi_supervised_vos_tpu_torch.cli.train import build_train_net
+    from semi_supervised_vos_tpu_torch.data.davis import TrainDataset
+    from semi_supervised_vos_tpu_torch.ops.onehot import davis_centroids
+    from semi_supervised_vos_tpu_torch.parallel.tp import shard_tp
+    from semi_supervised_vos_tpu_torch.parallel.train_mesh import MeshNet, make_mesh_train_step
+    from semi_supervised_vos_tpu_torch.train.loop import LossSpec, iterate_batches, make_train_step
+    from semi_supervised_vos_tpu_torch.train.train_state import make_optimizer
+
+    tree = work / "train"
+    ds = TrainDataset(tree / "JPEGImages" / "480p", tree / "Annotations" / "480p", cropping=TRAIN_CROP,
+                      frame_num=TRAIN_FRAMES)
+    imgs, anns = next(iterate_batches(ds, TRAIN_BS, num_workers=8))
+    imgs, anns = torch.as_tensor(imgs, device=dev), torch.as_tensor(anns, device=dev)
+    centroids = torch.as_tensor(davis_centroids(), dtype=torch.float32, device=dev)
+    total = torch.cuda.get_device_properties(0).total_memory
+    spec = LossSpec(name="cross_entropy")
+    net = build_train_net("resnet50", dev).train()
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+
+    def make(shape):
+        net.load_state_dict(start)
+        optimizer = make_optimizer(net.parameters())
+        if shape is None:
+            step = make_train_step(net, spec, optimizer)
+        else:
+            mesh = virtual_mesh(torch, dev, *shape)
+            mnet = shard_tp(mesh, net, optimizer) if shape[1] > 1 else MeshNet(mesh, net, optimizer)
+            step = make_mesh_train_step(mnet, spec)
+        generator = torch.Generator(device=dev).manual_seed(42)
+        return (lambda: step(imgs, anns, centroids, generator)), (mnet.sync_to_net if shape is not None else None)
+
+    def one(shape):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step, sync = make(shape)
+        loss = step().item()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if sync is not None:
+            sync()
+        state = {k: v.clone() for k, v in net.state_dict().items()}
+        t = time_ms(step, reps=MESH_TRAIN_REPS, warmup=1)
+        return loss, state, peak, t
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    loss1, state1, peak1, t1 = one(None)
+    u1 = (state1["backbone.0.weight"] - start["backbone.0.weight"]).flatten().double()
+    stat_keys = [k for k in start if k.endswith(("running_mean", "running_var"))]
+    out = {"single": dict(loss=loss1, **timing_keys("ms", t1), peak_share=peak1 / total)}
+    log(f"15b single step, resnet50 bs {TRAIN_BS} x {TRAIN_FRAMES} x {TRAIN_CROP}^2, TF32 off: loss {loss1:.7f}, "
+        f"{t1:.3f} ms, peak {peak1 / total:.4f} of the card")
+    for name, shape in MESH_TRAIN_SHAPES.items():
+        loss, state, peak, t = one(shape)
+        u = (state["backbone.0.weight"] - start["backbone.0.weight"]).flatten().double()
+        cos = float(u @ u1 / (u.norm() * u1.norm()))
+        rel = abs(loss - loss1) / abs(loss1)
+        bn = max(float((state[k] - state1[k]).abs().max()) for k in stat_keys)
+        clips = TRAIN_BS // shape[0]
+        out[name] = dict(mesh=list(shape), clips_per_row=clips, loss=loss, loss_rel=rel, conv1_update_cos=cos,
+                         bn_stat_max_abs=bn, **timing_keys("ms", t), ms_over_single=float(t) / float(t1),
+                         peak_share=peak / total)
+        log(f"15b {name} ({clips} clips a row) on a mesh naming the card {shape[0] * shape[1]} times: loss "
+            f"{loss:.7f} (relative {rel:.2e}), conv1 update cosine {cos:.7f}, BN running statistics max "
+            f"difference {bn:.2e}, {t:.3f} ms a step ({float(t) / float(t1):.3f}x the single step), peak "
+            f"{peak / total:.4f} of the card")
+        check(rel <= MESH_LOSS_RTOL, f"{name}: loss within {MESH_LOSS_RTOL} of the single step's")
+        check(cos >= MESH_MIN_COS, f"{name}: conv1 update cosine >= {MESH_MIN_COS}")
+        check(peak / total < 0.85, f"{name}: peak below 0.85 of the card")
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_cli_and_dryrun(torch, dev, work: Path):
+    """15c: ``train_command_impl(devices=[card] * 2, tp=2)`` for 2 epochs on
+    phase 11's tree, ``validation_command_impl(devices=[card] * 2)`` on its
+    checkpoints, and ``dryrun_multichip([card] * 4)``, each with its kernel
+    launches."""
+    from semi_supervised_vos_tpu_torch.cli.train import train_command_impl
+    from semi_supervised_vos_tpu_torch.cli.validation import validation_command_impl
+    from semi_supervised_vos_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    tree, ckpts = work / "train", work / "train_tp2"
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    train_command_impl(frame_num=TRAIN_FRAMES, training=str(tree), validation=str(tree), resume=None,
+                       save_model=str(ckpts), epochs=2, bs=TRAIN_BS, lr=0.02, loss="cross_entropy", freeze=False,
+                       miner="default", margin=0.1, loss_weight=1.0, max_triplets=0, early_stop=False,
+                       model_name="resnet50", device="cuda", disable=True, tp=2, devices=[dev] * 2)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_launches = kernel_launches()
+    names = sorted(p.name for p in ckpts.iterdir())
+    losses = [float(n.split("-")[3]) for n in names]
+    clips = 2 * (sum(TRAIN_VIDEOS.values()) // TRAIN_BS) * TRAIN_BS
+    log(f"15c train --tp 2 on [card] x 2: {clips} clips in {train_wall:.3f} s = {clips / train_wall:.3f} clips/s; "
+        f"checkpoints {names}; launches {train_launches}")
+    check(len(names) == 2 and all(math.isfinite(v) for v in losses), "two checkpoints with finite losses")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    val = validation_command_impl(str(tree), str(ckpts), TRAIN_BS, "cross_entropy", "default", 0.1, 6.0, None,
+                                  model_name="resnet50", device="cuda", disable=True, frame_num=TRAIN_FRAMES,
+                                  devices=[dev] * 2)
+    val_wall = time.perf_counter() - t0
+    val_launches = kernel_launches()
+    val_in_name = float(names[0].split("-")[4][: -len(".pth.tar")])
+    log(f"15c validation on [card] x 2: {val} in {val_wall:.3f} s; launches {val_launches}")
+    check(sorted(val) == names and all(math.isfinite(v) for v in val.values()), "validation: a finite loss a checkpoint")
+    check(abs(val[names[0]] - val_in_name) <= 1e-3 * abs(val_in_name),
+          "validation on epoch 0's --tp 2 checkpoint reproduces the train CLI's epoch-0 validation loss to 1e-3")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip([dev] * 4)
+    torch.cuda.synchronize()
+    dry_wall = time.perf_counter() - t0
+    dry_launches = kernel_launches()
+    log(f"15c dryrun_multichip([card] x 4) in {dry_wall:.3f} s: {dry}; launches {dry_launches}")
+    check(dry_launches["affinity_bank"] > 0 and dry_launches["bottleneck"] > 0,
+          "the dry run's sharded engines launch the bank kernel (stats mode) and the bottleneck")
+    return dict(train=dict(seconds=train_wall, clips_per_s=clips / train_wall, losses=losses,
+                           launches=train_launches),
+                validation=dict(seconds=val_wall, losses=val, launches=val_launches),
+                dryrun=dict(seconds=dry_wall, launches=dry_launches, **dry))
+
+
+def native_and_mesh_phase(torch, dev, work: Path, videos: dict):
+    """Phase 15: the native host loaders, training over a mesh, the mesh CLIs
+    and the dry run."""
+    return {"native": native_loaders(torch, work, videos), "mesh_training": mesh_training(torch, dev, work),
+            "cli": mesh_cli_and_dryrun(torch, dev, work)}
+
+
 def main() -> int:
     if not (ROOT / "semi_supervised_vos_tpu_torch" / "__init__.py").is_file():
         log("FAILED: the semi_supervised_vos_tpu_torch package is not beside this script")
@@ -2332,6 +2578,8 @@ def main() -> int:
         stage("phase 14: float32 inference (SVOS_INFER_DTYPE=float32)")
         bf16 = dict(fps=fps, engine_ms=engine_ms, card_vs_cpu=card_vs_cpu)
         f32 = float32_phase(torch, dev, rng, work, net, videos, lockstep_videos, bf16)
+        stage("phase 15: native host loaders, training over a mesh, the mesh CLIs and the dry run")
+        p15 = native_and_mesh_phase(torch, dev, work, videos)
     stage("summary")
     log(f"main path on {card}: {fps:.3f} fps end to end (CLI, decode and PNG writes included), "
         f"{engine_ms:.4f} ms/frame on the device (decoded frames), J&F {jf:.6f}")
@@ -2365,6 +2613,16 @@ def main() -> int:
         f"bank kernel {f32['bank']['ms']:.4f} ms at 480p (bf16 {aff['ms']:.4f}), bottleneck {f32['bottleneck']['ms']:.4f} "
         f"ms per 8-frame encode call (bf16 {bott['ms']:.4f})")
 
+    nat, mt, mc = p15["native"], p15["mesh_training"], p15["cli"]
+    log(f"native loaders on {card}: upsampler on, PNGs byte-equal off and on; decoder {nat['decoder']}"
+        + (f" ({nat['decoder_reason']})" if nat["decoder"] == "off" else "")
+        + f"; host ms over {nat['frames']} frames: " + ", ".join(f"{k} {nat[k]:.3f}" for k in nat if k.endswith("_ms")))
+    log(f"mesh training on {card} (virtual one-card mesh, resnet50 bs {TRAIN_BS} x {TRAIN_FRAMES} x {TRAIN_CROP}^2, "
+        f"TF32 off): single {mt['single']['ms']:.3f} ms, peak {mt['single']['peak_share']:.4f}; "
+        + "; ".join(f"{k} {mt[k]['ms']:.3f} ms ({mt[k]['ms_over_single']:.3f}x), loss relative {mt[k]['loss_rel']:.2e}, "
+                    f"cosine {mt[k]['conv1_update_cos']:.7f}, peak {mt[k]['peak_share']:.4f}" for k in MESH_TRAIN_SHAPES)
+        + f"; train --tp 2 {mc['train']['clips_per_s']:.3f} clips/s; dryrun_multichip in {mc['dryrun']['seconds']:.3f} s")
+
     # launches: the main path's (kernel 3: its own path's; the float32
     # variants: phase 14d's); launches_by_path: each strategy's run; prob_*:
     # probability mode at 480p, where scaled_dot_product_attention computes
@@ -2383,6 +2641,10 @@ def main() -> int:
         by_path[k]["float32 lockstep single --video-batch 8"] = f32l["launches_vb8"][k]
         by_path[k]["float32 lockstep dp 2 x bank 2 --video-batch 3 (virtual mesh)"] = f32l["mesh"]["launches"][k]
         by_path[k]["float32 SVOS_FAST_ENCODER=0"] = f32["fast_encoder_off"]["launches"][k]
+        by_path[k]["main path under the native upsampler"] = nat["launches"][k]
+        by_path[k]["train --tp 2 and validation on [card] x 2"] = mc["train"]["launches"][k] + \
+            mc["validation"]["launches"][k]
+        by_path[k]["dryrun_multichip([card] x 4)"] = mc["dryrun"]["launches"][k]
     lk = lockstep["kernels"]
     prob_keys = dict(prob_bound_ms=prob["bound_ms"], prob_bound_by=prob["bound_by"], prob_library_ms=prob["library_ms"])
     kernels = [
@@ -2417,6 +2679,7 @@ def main() -> int:
     print(json.dumps({"facebook": facebook}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"float32": f32}))
+    print(json.dumps({"native_and_mesh": p15}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,13 @@
 ``src/train.py:25-49``) on the PyTorch train loop.
 
 ``--device`` takes ``cuda`` (the default) or ``cpu``; ``cuda`` without a
-card raises. Not ported yet, and refused: ``--tp`` > 1. On a host with
-several cards the port trains on the first
-(the JAX package's data-parallel mesh is not ported). Checkpoints are
-reference-format ``.pth.tar`` files (``train/train_state.py``).
+card raises. The mesh follows the JAX CLI's rules (``cli/train.py:184-230``
+there), over every card under ``--device cuda`` and the one CPU under
+``--device cpu``: data parallelism when the batch divides over the
+data-parallel degree ``n_devices / --tp``, channel sharding with ``--tp``
+> 1, both on a 2-D mesh (``parallel/train_mesh.py``, ``parallel/tp.py``).
+Checkpoints are reference-format ``.pth.tar`` files
+(``train/train_state.py``), gathered to the single-device layout.
 """
 
 from __future__ import annotations
@@ -52,7 +55,9 @@ LOSS_CHOICES = ["cross_entropy", "focal", "contrastive", "triplet"]
 @click.option("--device", type=click.Choice(["cuda", "cpu"]), default="cuda", help="Device to run computing on.")
 @click.option("--bf16/--no-bf16", default=False,
               help="bfloat16 autocast over the forward (float32 parameters and gradients).")
-@click.option("--tp", type=click.IntRange(min=1), default=1, help="Tensor-parallel degree (only 1 is ported).")
+@click.option("--tp", type=click.IntRange(min=1), default=1,
+              help="Tensor-parallel degree: channel-shard the backbone over the mesh's model axis (composes with "
+                   "data parallelism over the remaining devices).")
 @click.option("--decode-cache/--no-decode-cache", default=None,
               help="Keep decoded frames in host RAM after the first epoch. Default: the SVOS_DECODE_CACHE env var.")
 def train_command(frame_num, training, validation, resume, save_model, epochs, bs, lr, loss, freeze, miner, margin,
@@ -65,9 +70,39 @@ def train_command(frame_num, training, validation, resume, save_model, epochs, b
         raise click.ClickException(str(err)) from err
 
 
-def check_supported(tp: int) -> None:
-    if tp != 1:
-        raise NotImplementedError("--tp > 1 (tensor parallelism over several devices) is not ported")
+def mesh_devices(dev, devices=None) -> list:
+    """The devices a mesh may use: ``devices`` when given (tests and
+    ``chip_smoke.py`` pass ``[cpu] * 8`` or ``[cuda:0] * k``), else every
+    card under ``--device cuda`` and the one CPU under ``--device cpu`` (a
+    JAX host without virtual devices)."""
+    import torch
+
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def train_mesh_shape(n_dev: int, tp: int, bs: int):
+    """The JAX train CLI's rules, word for word: (n_data, n_model) of the
+    mesh, or None to run on one device."""
+    if tp < 1 or tp > n_dev:
+        raise click.ClickException(f"--tp {tp} must be between 1 and the {n_dev} available device(s).")
+    if n_dev % tp != 0:
+        raise click.ClickException(
+            f"--tp {tp} must divide the device count ({n_dev}); {n_dev % tp} device(s) would sit idle.")
+    n_data = n_dev // tp
+    if bs % n_data != 0:
+        if tp > 1:
+            raise click.ClickException(
+                f"--tp {tp} needs batch size divisible by the data-parallel degree {n_data} (got --bs {bs}).")
+        if n_dev > 1:
+            logger.warning(f"batch size {bs} does not divide over {n_data} devices; "
+                           "running single-device (pick a divisible --bs to engage the mesh)")
+    if n_dev > 1 and bs % n_data == 0:
+        return n_data, tp
+    return None
 
 
 def make_spec(loss: str, miner: str, margin: float, loss_weight: float, max_triplets: int = 0):
@@ -106,9 +141,9 @@ def build_train_net(model_name: str, dev, pretrained=None):
 
 def train_command_impl(frame_num, training, validation, resume, save_model, epochs, bs, lr, loss, freeze, miner,
                        margin, loss_weight, max_triplets, early_stop, model_name="resnet50", pretrained=None,
-                       device="cuda", disable=False, crop=256, bf16=False, tp=1, decode_cache=None):
-    """Reference ``src/train.py:49-152``; returns the trained network."""
-    check_supported(tp)
+                       device="cuda", disable=False, crop=256, bf16=False, tp=1, decode_cache=None, devices=None):
+    """Reference ``src/train.py:49-152``; returns the trained network.
+    ``devices``: the mesh's devices in place of every card (or the CPU)."""
     import torch
 
     from semi_supervised_vos_tpu_torch.config import default_num_workers
@@ -133,9 +168,15 @@ def train_command_impl(frame_num, training, validation, resume, save_model, epoc
     from semi_supervised_vos_tpu_torch.utils.runtime import resolve_device
 
     dev = resolve_device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        logger.warning(f"{torch.cuda.device_count()} cards present; training on cuda:0 only "
-                       "(multi-device data parallelism is not ported)")
+    devices = mesh_devices(dev, devices)
+    n_dev = len(devices)
+    shape = train_mesh_shape(n_dev, tp, bs)
+    mesh = None
+    if shape is not None:
+        from semi_supervised_vos_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(*shape, devices=devices)
+    dev = devices[0]
     logger.info("Training started.")
     spec = make_spec(loss, miner, margin, loss_weight, max_triplets)
 
@@ -163,14 +204,41 @@ def train_command_impl(frame_num, training, validation, resume, save_model, epoc
 
     num_workers = default_num_workers()
     centroids = torch.as_tensor(davis_centroids(), dtype=torch.float32, device=dev)
-    train_step = make_train_step(net, spec, optimizer, bf16=bf16)
-    eval_step = make_eval_step(net, spec, bf16=bf16)
+    mnet, eval_mesh = None, None
+    if mesh is None:
+        train_step = make_train_step(net, spec, optimizer, bf16=bf16)
+        eval_step = make_eval_step(net, spec, bf16=bf16)
+    else:
+        from semi_supervised_vos_tpu_torch.parallel.mesh import Mesh
+        from semi_supervised_vos_tpu_torch.parallel.tp import shard_tp
+        from semi_supervised_vos_tpu_torch.parallel.train_mesh import (
+            MeshNet,
+            make_mesh_eval_step,
+            make_mesh_train_step,
+        )
+
+        mnet = shard_tp(mesh, net, optimizer) if tp > 1 else MeshNet(mesh, net, optimizer)
+        train_step = make_mesh_train_step(mnet, spec, bf16=bf16)
+        # the epoch's validation is sharded when its batch divides over every
+        # device; otherwise it runs unsharded: under --tp on the first data
+        # row's columns, else on the one device
+        if validation_bs % n_dev == 0:
+            eval_mesh = mesh
+        elif tp > 1:
+            eval_mesh = Mesh([mesh.devices[0]])
+        eval_step = (make_mesh_eval_step(mnet.on(eval_mesh), spec, bf16=bf16) if eval_mesh is not None
+                     else make_eval_step(net, spec, bf16=bf16))
+        logger.info(f"mesh: data={shape[0]} x model={tp} over {n_dev} devices")
     geometry_fn = make_geometry_fn(spec, davis_centroids(), dev)
     generator = torch.Generator(device=dev).manual_seed(42)
 
+    def save(target):
+        if mnet is not None:
+            mnet.sync_to_net()  # the single-device layout of a checkpoint
+        save_checkpoint(net, optimizer, epoch + 1, target)
+
     epoch = start_epoch
-    early_stopper = EarlyStopping(save_model, log=logger.info,
-                                  save_fn=lambda target: save_checkpoint(net, optimizer, epoch + 1, target))
+    early_stopper = EarlyStopping(save_model, log=logger.info, save_fn=save)
     progress, bar = None, None
     if not disable:
         try:
@@ -186,21 +254,25 @@ def train_command_impl(frame_num, training, validation, resume, save_model, epoc
         train_dataset.seed(42)
         validation_dataset.seed(42)
         set_learning_rate(optimizer, cosine_lr(epoch, base_lr=lr, epochs=epochs))
+        if mnet is not None and mnet.optimizer is not optimizer:  # the shards' optimizer
+            set_learning_rate(mnet.optimizer, cosine_lr(epoch, base_lr=lr, epochs=epochs))
         net.train()
         train_loss = run_epoch(train_step, iterate_batches(train_dataset, bs, num_workers=num_workers), centroids,
-                               generator, dev, progress=progress, geometry_fn=geometry_fn)
+                               generator, dev, progress=progress, geometry_fn=geometry_fn, mesh=mesh)
         validation_loss = float("nan")
         if epoch % 10 == 0:
             net.eval()
             validation_loss = run_epoch(
                 eval_step, iterate_batches(validation_dataset, validation_bs, num_workers=num_workers), centroids,
-                generator, dev, geometry_fn=geometry_fn)
+                generator, dev, geometry_fn=geometry_fn, mesh=eval_mesh)
         if early_stop and early_stopper(validation_loss, epoch):
             logger.info("Early stopping stopped the training.")
             break
-        save_checkpoint(net, optimizer, epoch + 1, save_model / checkpoint_name(epoch, train_loss, validation_loss))
+        save(save_model / checkpoint_name(epoch, train_loss, validation_loss))
         logger.info(f"epoch {epoch}: train_loss={train_loss:.5f} val_loss={validation_loss:.5f}")
     if bar:
         bar.close()
+    if mnet is not None:
+        mnet.sync_to_net()
     logger.info("Training finished.")
     return net

@@ -1,7 +1,9 @@
 """`validation` command (reference ``src/validation.py:29-98``): the
 validation loss of every ``.pth.tar`` checkpoint in a directory, written as
 a JSON report. A JAX package Orbax checkpoint (a ``.ckpt`` directory) is
-refused with an error: the port cannot read it."""
+refused with an error: the port cannot read it. With several devices (every
+card under ``--device cuda``) the batch is sharded over all of them when it
+divides, the JAX CLI's rule (``cli/validation.py:87-108`` there)."""
 
 from __future__ import annotations
 
@@ -34,11 +36,12 @@ def validation_command(data, checkpoints, bs, loss, miner, margin, loss_weight, 
 
 
 def validation_command_impl(data, checkpoints, bs, loss, miner, margin, loss_weight, output, model_name="resnet50",
-                            device="cuda", disable=False, frame_num=10, crop=256):
-    """Reference ``src/validation.py:29-98``; returns {checkpoint name: loss}."""
+                            device="cuda", disable=False, frame_num=10, crop=256, devices=None):
+    """Reference ``src/validation.py:29-98``; returns {checkpoint name: loss}.
+    ``devices``: the mesh's devices in place of every card (or the CPU)."""
     import torch
 
-    from semi_supervised_vos_tpu_torch.cli.train import make_spec
+    from semi_supervised_vos_tpu_torch.cli.train import make_spec, mesh_devices
 
     from semi_supervised_vos_tpu_torch.config import default_num_workers
     from semi_supervised_vos_tpu_torch.data.davis import TrainDataset
@@ -49,6 +52,18 @@ def validation_command_impl(data, checkpoints, bs, loss, miner, margin, loss_wei
     from semi_supervised_vos_tpu_torch.utils.runtime import resolve_device
 
     dev = resolve_device(device)
+    devices = mesh_devices(dev, devices)
+    n_dev = len(devices)
+    mesh = None
+    if n_dev > 1 and bs % n_dev == 0:
+        from semi_supervised_vos_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(n_dev, 1, devices=devices)
+        logger.info(f"mesh: data={n_dev} over {n_dev} devices")
+    elif n_dev > 1:
+        logger.warning(f"batch size {bs} does not divide over {n_dev} devices; "
+                       "running single-device (pick a divisible --bs to engage the mesh)")
+    dev = devices[0]
     logger.info("Validation started.")
     spec = make_spec(loss, miner, margin, loss_weight)
     ckpts = sorted(p for p in Path(checkpoints).iterdir() if p.suffix == ".ckpt" or p.name.endswith(".pth.tar"))
@@ -61,7 +76,12 @@ def validation_command_impl(data, checkpoints, bs, loss, miner, margin, loss_wei
     if dev.type == "cuda":
         net = net.to(memory_format=torch.channels_last)
     net.eval()
-    eval_step = make_eval_step(net, spec)
+    if mesh is None:
+        eval_step = make_eval_step(net, spec)
+    else:
+        from semi_supervised_vos_tpu_torch.parallel.train_mesh import MeshNet, make_mesh_eval_step
+
+        eval_step = make_mesh_eval_step(MeshNet(mesh, net), spec)
     centroids = torch.as_tensor(davis_centroids(), dtype=torch.float32, device=dev)
     geometry_fn = make_geometry_fn(spec, davis_centroids(), dev)
     generator = torch.Generator(device=dev).manual_seed(42)
@@ -72,7 +92,7 @@ def validation_command_impl(data, checkpoints, bs, loss, miner, margin, loss_wei
         validation_dataset.seed(42)
         # items do not depend on the decode threads (TrainDataset.plan)
         val_loss = run_epoch(eval_step, iterate_batches(validation_dataset, bs, num_workers=default_num_workers()),
-                             centroids, generator, dev, geometry_fn=geometry_fn)
+                             centroids, generator, dev, geometry_fn=geometry_fn, mesh=mesh)
         losses_out[ckpt.name] = val_loss
         logger.info(f"{ckpt.name}: {val_loss:.5f}")
     if output is not None:

@@ -2,7 +2,8 @@
 
 Directory scanning reproduces ``ImageFolder`` semantics (sorted class dirs,
 recursively sorted files); encoded bytes are preloaded into RAM up front and
-decoded on demand with PIL (reference ``src/utils/datasets.py:19-167``).
+decoded on demand with PIL, or with the native JPEG decoder under
+``SVOS_NATIVE_DECODE=1`` (reference ``src/utils/datasets.py:19-167``).
 Frames are HWC uint8; normalisation, centroid quantisation and one-hot
 encoding run on the device. The flip and second-scale items of the
 multi-stream strategies follow ``datasets.py:148-162``.
@@ -20,6 +21,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 from PIL import Image, ImageOps
 
+from semi_supervised_vos_tpu_torch.data import native_decode
 from semi_supervised_vos_tpu_torch.data.transforms import FixedColorJitter, get_crop_params, hflip, pil_crop, vflip
 from semi_supervised_vos_tpu_torch.utils.logging import logger
 
@@ -40,7 +42,11 @@ def list_image_folder(root) -> Tuple[List[Tuple[str, int]], Dict[str, int]]:
 
 
 def decode_rgb(blob: bytes) -> np.ndarray:
-    """Decode an encoded image to (H, W, 3) uint8."""
+    """Decode an encoded image to (H, W, 3) uint8: a JPEG through the native
+    threaded decoder while it is on (``SVOS_NATIVE_DECODE=1``; the same
+    bytes as PIL's, checked at first use), anything else through PIL."""
+    if blob[:2] == b"\xff\xd8" and native_decode.available():
+        return native_decode.decode_jpeg(blob)
     return np.asarray(Image.open(BytesIO(blob)).convert("RGB"), np.uint8)
 
 
@@ -146,23 +152,35 @@ class TrainDataset:
         crop = get_crop_params(size, self.cropping, self.rng)
         if jitter is not None:
             return functools.partial(self._load_pil, index, jitter, h_flip, v_flip, crop)
-        return functools.partial(self._load, index, h_flip, v_flip, crop)
+        return functools.partial(self._load, index, h_flip, v_flip, crop, size[1])
 
     def __getitem__(self, index: int):
         return self.plan(index)()
 
-    def _load(self, index: int, h_flip: bool, v_flip: bool, crop):
+    def _load(self, index: int, h_flip: bool, v_flip: bool, crop, height: int):
         """Flip as views, then copy the crop: crop(flip(x)), as the
-        reference does it."""
+        reference does it. With the native decoder on and no decode cache,
+        a JPEG frame decodes only the row band the crop covers (raw rows
+        [height − ci − th, height − ci) under a vertical flip), the same
+        bytes as those rows of a whole decode."""
         ci, cj, th, tw = crop
+        rows = self._img_cache is None and th < height and native_decode.available()
+        y0 = height - (ci + th) if v_flip else ci
         imgs, anns = [], []
         for i in range(self.frame_num):
-            img, ann = self._image(index + i), self._annotation(index + i)
-            if h_flip:
-                img, ann = hflip(img), hflip(ann)
-            if v_flip:
-                img, ann = vflip(img), vflip(ann)
-            imgs.append(np.ascontiguousarray(img[ci : ci + th, cj : cj + tw]))
+            blob, ann = self.img_bytes[index + i], self._annotation(index + i)
+            if rows and blob[:2] == b"\xff\xd8":
+                img = native_decode.decode_jpeg_rows(blob, y0, th)
+                img = vflip(img) if v_flip else img
+                img = hflip(img) if h_flip else img
+                imgs.append(np.ascontiguousarray(img[:, cj : cj + tw]))
+            else:
+                img = self._image(index + i)
+                img = hflip(img) if h_flip else img
+                img = vflip(img) if v_flip else img
+                imgs.append(np.ascontiguousarray(img[ci : ci + th, cj : cj + tw]))
+            ann = hflip(ann) if h_flip else ann
+            ann = vflip(ann) if v_flip else ann
             anns.append(np.ascontiguousarray(ann[ci : ci + th, cj : cj + tw]))
         return np.stack(imgs), np.stack(anns), self.imgs[index + self.frame_num - 1][1]
 

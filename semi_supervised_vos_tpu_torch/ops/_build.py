@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels and the host libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/kernels/`` at the
@@ -8,6 +8,10 @@ so an edited source or header is rebuilt and a stale library is never
 loaded. Nothing is built or imported until a
 kernel is first needed (or :func:`build` is called), so the CPU-only tests
 import every module without a CUDA toolkit.
+
+The two host libraries, ``csrc/host/decode.cpp`` (the JPEG decoder) and
+``csrc/host/upsample.cpp`` (the mask upsampler), are compiled the same way
+by ``g++`` into ``build/host/`` (:func:`build_host`).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+HOST_BUILD_DIR = _PKG.parent / "build" / "host"
 KERNELS = ("affinity_bank", "bottleneck", "affinity_bank_f32", "bottleneck_f32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -102,3 +107,32 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def build_host(name: str, flags: Iterable[str]) -> Path:
+    """Compile ``csrc/host/<name>.cpp`` with ``g++ -shared -fPIC`` and
+    ``flags`` (optimisation and link flags) into ``build/host/``, unless it
+    is built; the file name hashes the source and the flags. Returns the
+    library's path; raises ``OSError`` or ``subprocess.SubprocessError``
+    (the compiler's output attached) on failure."""
+    flags = list(flags)
+    src = CSRC / "host" / f"{name}.cpp"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(flags).encode())
+    out = HOST_BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    with _LOCK:
+        if not out.exists():
+            HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            subprocess.run(["g++", "-shared", "-fPIC", "-o", str(tmp), str(src), *flags],
+                           check=True, capture_output=True, timeout=120)
+            os.replace(tmp, out)
+    return out
+
+
+def build_failure(err: Exception) -> str:
+    """One line saying why :func:`build_host` or loading its library failed:
+    the compiler's first error line when it has one."""
+    lines = (getattr(err, "stderr", None) or b"").decode(errors="replace").splitlines()
+    detail = next((ln.strip() for ln in lines if "error" in ln), lines[-1].strip() if lines else str(err))
+    return f"the build or load failed ({type(err).__name__}: {detail})"

@@ -30,10 +30,18 @@ def nearest_resize(
 
 def nearest_resize_host(x, out_hw: Tuple[int, int], hw_axes: Tuple[int, int] = (0, 1)) -> np.ndarray:
     """NumPy twin of :func:`nearest_resize` for host-side mask upsampling
-    (the same integer index mapping)."""
+    (the same integer index mapping). A uint8 array with H and W as its
+    last two axes (every mask drain's case) goes through the native
+    upsampler (``ops/native_upsample.py``) while it is on: the same bytes."""
     x = np.asarray(x)
     h_ax = hw_axes[0] % x.ndim
     w_ax = hw_axes[1] % x.ndim
+    if (h_ax, w_ax) == (x.ndim - 2, x.ndim - 1) and x.dtype == np.uint8:
+        from semi_supervised_vos_tpu_torch.ops.native_upsample import nearest_u8
+
+        out = nearest_u8(x, out_hw)
+        if out is not None:
+            return out
     rows = np.minimum(np.arange(out_hw[0]) * x.shape[h_ax] // out_hw[0], x.shape[h_ax] - 1)
     cols = np.minimum(np.arange(out_hw[1]) * x.shape[w_ax] // out_hw[1], x.shape[w_ax] - 1)
     x = np.take(x, rows, axis=h_ax)

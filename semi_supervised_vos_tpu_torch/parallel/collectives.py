@@ -14,12 +14,12 @@ source device's current stream and runs on the destination's, and the
 kernels launch on the current streams, so a reduction on the first device
 sees every shard's finished result.
 
-No engine calls these yet: the bank-sharded engines combine their shards'
-statistics with ``parallel/sharded_affinity.py::distributed_softmax_combine``
-and the data axis needs no collective. They are the JAX module's
-counterparts, for the data-parallel training step (``pmean`` of gradients,
-ROADMAP Queue 1). ``shard_mapped`` has no counterpart: the engines loop
-over their shards.
+The mesh train step (``parallel/train_mesh.py``) reduces BatchNorm's
+statistics and their gradients' sums over the data rows with :func:`psum`
+and joins a row's channel slices with :func:`all_gather`; the bank-sharded
+engines combine their shards' statistics with
+``parallel/sharded_affinity.py::distributed_softmax_combine``.
+``shard_mapped`` has no counterpart: the callers loop over their shards.
 """
 
 from __future__ import annotations
@@ -56,11 +56,11 @@ def pmax(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return _broadcast(_reduce(xs, torch.maximum), xs)
 
 
-def all_gather(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Every shard gets all shards concatenated along dim 0, in shard order
-    (JAX's ``all_gather(..., tiled=True)``)."""
+def all_gather(xs: Sequence[torch.Tensor], dim: int = 0) -> List[torch.Tensor]:
+    """Every shard gets all shards concatenated along ``dim``, in shard
+    order (JAX's ``all_gather(..., axis=dim, tiled=True)``)."""
     dev = xs[0].device
-    return _broadcast(torch.cat([x.to(dev) for x in xs]), xs)
+    return _broadcast(torch.cat([x.to(dev) for x in xs], dim=dim), xs)
 
 
 def ppermute_shift(xs: Sequence[torch.Tensor], shift: int = 1) -> List[torch.Tensor]:

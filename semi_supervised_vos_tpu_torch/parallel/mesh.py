@@ -98,15 +98,21 @@ def replicate(mesh: Mesh, tree) -> Dict[torch.device, object]:
     return {dev: _to(tree, dev) for dev in mesh.distinct_devices}
 
 
-def shard_batch(mesh: Mesh, *arrays) -> tuple:
+def shard_batch(mesh: Mesh, *arrays, pin: bool = False) -> tuple:
     """Each (B, ...) array (numpy or torch) cut along its leading axis into
     ``n_data`` equal blocks, block r on the first device of data row r: one
-    list of per-row tensors for each array. B must divide by ``n_data``."""
+    list of per-row tensors for each array. B must divide by ``n_data``.
+    ``pin``: copy each host block from pinned memory without blocking, on
+    the destination's current stream (the train loop's staging thread)."""
     n = mesh.shape["data"]
     out = []
     for a in arrays:
         t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
         if t.shape[0] % n:
             raise ValueError(f"leading axis {t.shape[0]} does not divide over {n} data rows")
-        out.append([blk.to(row[0]) for blk, row in zip(t.chunk(n), mesh.devices)])
+        if pin:
+            out.append([blk.contiguous().pin_memory().to(row[0], non_blocking=True)
+                        for blk, row in zip(t.chunk(n), mesh.devices)])
+        else:
+            out.append([blk.to(row[0]) for blk, row in zip(t.chunk(n), mesh.devices)])
     return tuple(out)

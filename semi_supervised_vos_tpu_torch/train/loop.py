@@ -127,26 +127,31 @@ def _miner_extras(feats, ann_cls, miner):
     return None, None  # the kernel miners mine the target frame
 
 
-def make_loss_fn(spec: LossSpec, num_classes: int = DEFAULT.num_classes, bf16: bool = False):
-    """``loss_fn(net, imgs, anns, centroids, generator, geometry=None)``:
-    imgs and anns (B, T, H, W, 3) uint8 on the device; ``geometry`` is
-    :func:`make_geometry_fn`'s output for the batch in pipelined mode.
-    Train or eval follows ``net.training``."""
+def normalized_frames(imgs: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, 3) uint8 clips → (B·T, 3, H, W) float32 frames,
+    ImageNet-normalised (channels-last strides)."""
+    dev = imgs.device
+    x = imgs.reshape(-1, *imgs.shape[2:]).float() / 255.0
+    x = (x - torch.as_tensor(IMAGENET_MEAN, device=dev)) / torch.as_tensor(IMAGENET_STD, device=dev)
+    return x.permute(0, 3, 1, 2)
 
-    def loss_fn(net, imgs, anns, centroids, generator, geometry=None):
-        b, t, h, w, _ = imgs.shape
-        dev = imgs.device
-        x = imgs.reshape(-1, h, w, 3).float() / 255.0
-        x = (x - torch.as_tensor(IMAGENET_MEAN, device=dev)) / torch.as_tensor(IMAGENET_STD, device=dev)
-        with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=bf16):
-            out = net(x.permute(0, 3, 1, 2))
-        feats = out.float().permute(0, 2, 3, 1)
-        hd, wd, c = feats.shape[1:]
-        feats = feats.reshape(b, t, hd, wd, c)
 
-        # annotations: nearest ×1/8 downsample and centroid quantisation
-        # (train.py:166-172), on the device
-        ann_small = nearest_resize(anns.reshape(-1, h, w, 3), (hd, wd))
+def features_from_embeddings(out: torch.Tensor, b: int, t: int) -> torch.Tensor:
+    """(B·T, C, Hd, Wd) embeddings → (B, T, Hd, Wd, C) float32 features."""
+    feats = out.float().permute(0, 2, 3, 1)
+    return feats.reshape(b, t, *feats.shape[1:])
+
+
+def make_head_fn(spec: LossSpec, num_classes: int = DEFAULT.num_classes):
+    """Features to loss: ``head(feats, anns, centroids, generator,
+    geometry=None)`` with feats (B, T, Hd, Wd, C) float32 and anns (B, T,
+    H, W, 3) uint8 on one device: the annotations' ×1/8 nearest downsample
+    and centroid quantisation (``train.py:166-172``), the one-hot reference
+    labels and the loss."""
+
+    def head(feats, anns, centroids, generator, geometry=None):
+        b, t, hd, wd, c = feats.shape
+        ann_small = nearest_resize(anns.reshape(-1, *anns.shape[2:]), (hd, wd))
         ann_cls = color_to_class(ann_small, centroids).reshape(b, t, hd, wd)
 
         ref, target = feats[:, : t - 1], feats[:, -1]
@@ -166,6 +171,23 @@ def make_loss_fn(spec: LossSpec, num_classes: int = DEFAULT.num_classes, bf16: b
                 temperature=spec.temperature, geometry=geometry,
             )
         raise RuntimeError("Invalid loss type.")
+
+    return head
+
+
+def make_loss_fn(spec: LossSpec, num_classes: int = DEFAULT.num_classes, bf16: bool = False):
+    """``loss_fn(net, imgs, anns, centroids, generator, geometry=None)``:
+    imgs and anns (B, T, H, W, 3) uint8 on the device; ``geometry`` is
+    :func:`make_geometry_fn`'s output for the batch in pipelined mode.
+    Forward to features, then :func:`make_head_fn`'s head. Train or eval
+    follows ``net.training``."""
+    head = make_head_fn(spec, num_classes)
+
+    def loss_fn(net, imgs, anns, centroids, generator, geometry=None):
+        with torch.autocast(imgs.device.type, dtype=torch.bfloat16, enabled=bf16):
+            out = net(normalized_frames(imgs))
+        feats = features_from_embeddings(out, *imgs.shape[:2])
+        return head(feats, anns, centroids, generator, geometry)
 
     return loss_fn
 
@@ -224,20 +246,28 @@ def iterate_batches(dataset, batch_size: int, drop_last: bool = True,
         yield np.stack(imgs_buf), np.stack(anns_buf)
 
 
-def _device_stage(loader, device, depth: int = 2, geometry_fn=None):
+def _device_stage(loader, device, depth: int = 2, geometry_fn=None, mesh=None):
     """Bring batches to the device one step ahead, on a thread.
 
-    On the card each batch is copied from pinned memory on a side stream,
-    and the consumer's stream waits on the copy's event, so the copy of
-    batch t+1 (63 MB of uint8 at bs 16 × 10 × 256²) and the decode loader
-    overlap step t. ``geometry_fn`` (pipelined mining) runs on the thread
-    too. Yields (imgs, anns, geometry or None)."""
+    On the card each batch is copied from pinned memory on a side stream
+    (one a device), and the consumer's stream waits on the copy's event, so
+    the copy of batch t+1 (63 MB of uint8 at bs 16 × 10 × 256²) and the
+    decode loader overlap step t. ``geometry_fn`` (pipelined mining) runs on
+    the thread too. With a ``mesh`` (``parallel/mesh.py``) the images and
+    annotations are cut over its data rows by ``shard_batch``, each row's
+    slice on the row's first device, and the geometry goes to the mesh's
+    first device. Yields (imgs, anns, geometry or None): tensors, or per-row
+    lists of them with a mesh."""
+    import contextlib
     import queue
     import threading
 
-    device = torch.device(device)
+    from semi_supervised_vos_tpu_torch.parallel.mesh import shard_batch
+
+    device = torch.device(device) if mesh is None else mesh.devices[0][0]
     cuda = device.type == "cuda"
-    copy_stream = torch.cuda.Stream(device) if cuda else None
+    devices = [device] if mesh is None else mesh.distinct_devices
+    copy_streams = {d: torch.cuda.Stream(d) for d in devices} if cuda else {}
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     err = []
     stop = threading.Event()  # the consumer has gone: do not block
@@ -251,21 +281,37 @@ def _device_stage(loader, device, depth: int = 2, geometry_fn=None):
                 continue
         return False
 
-    def to_device(arrays):
+    def place(imgs, anns, geom):
+        if mesh is not None:
+            imgs, anns = shard_batch(mesh, imgs, anns, pin=cuda)
+        else:
+            imgs, anns = (torch.from_numpy(np.ascontiguousarray(a)) for a in (imgs, anns))
+            if cuda:
+                imgs, anns = (a.pin_memory().to(device, non_blocking=True) for a in (imgs, anns))
+        geom = [torch.from_numpy(np.ascontiguousarray(g)) for g in geom]
+        if cuda:
+            geom = [g.pin_memory().to(device, non_blocking=True) for g in geom]
+        return imgs, anns, geom
+
+    def to_device(imgs, anns, geom):
         if not cuda:
-            return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays], None
-        with torch.cuda.stream(copy_stream):
-            out = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(device, non_blocking=True) for a in arrays]
-            event = torch.cuda.Event()
-            event.record(copy_stream)
-        return out, event
+            return place(imgs, anns, geom), []
+        with contextlib.ExitStack() as streams:
+            for s in copy_streams.values():
+                streams.enter_context(torch.cuda.stream(s))
+            out = place(imgs, anns, geom)
+            events = []
+            for d, s in copy_streams.items():
+                events.append((d, torch.cuda.Event()))
+                events[-1][1].record(s)
+        return out, events
 
     def worker():
         try:
             for imgs, anns in loader:
                 geom = geometry_fn(anns) if geometry_fn is not None else ()
-                tensors, event = to_device([imgs, anns, *geom])
-                if not _put((tensors, event, len(geom))):
+                item = to_device(imgs, anns, geom)
+                if not _put(item):
                     return
         except BaseException as e:  # raised again on the consumer's side
             err.append(e)
@@ -279,14 +325,14 @@ def _device_stage(loader, device, depth: int = 2, geometry_fn=None):
             item = q.get()
             if item is None:
                 break
-            tensors, event, n_geom = item
-            if event is not None:
-                stream = torch.cuda.current_stream(device)
-                stream.wait_event(event)
-                for t in tensors:
-                    t.record_stream(stream)
-            imgs, anns, *geom = tensors
-            yield imgs, anns, (tuple(geom) if n_geom else None)
+            (imgs, anns, geom), events = item
+            for d, event in events:
+                torch.cuda.current_stream(d).wait_event(event)
+            if events:
+                flat = [*(imgs if mesh is not None else [imgs]), *(anns if mesh is not None else [anns]), *geom]
+                for t in flat:
+                    t.record_stream(torch.cuda.current_stream(t.device))
+            yield imgs, anns, (tuple(geom) if geom else None)
     finally:
         stop.set()
         while True:  # free a producer parked on a full queue
@@ -300,12 +346,13 @@ def _device_stage(loader, device, depth: int = 2, geometry_fn=None):
 
 
 def run_epoch(step_fn, loader, centroids, generator, device, progress: Optional[Callable[[], None]] = None,
-              geometry_fn: Optional[Callable] = None) -> float:
+              geometry_fn: Optional[Callable] = None, mesh=None) -> float:
     """One pass of ``step_fn`` over ``loader`` (reference ``step()``,
     ``train.py:155-216``); the mean loss, read from the device once at the
-    end (NaN for an empty loader)."""
+    end (NaN for an empty loader). With a ``mesh``, ``step_fn`` is a mesh
+    step (``parallel/train_mesh.py``) and takes per-row lists."""
     step_losses = []
-    for imgs, anns, geom in _device_stage(loader, device, geometry_fn=geometry_fn):
+    for imgs, anns, geom in _device_stage(loader, device, geometry_fn=geometry_fn, mesh=mesh):
         extra = (geom,) if geom is not None else ()
         step_losses.append(step_fn(imgs, anns, centroids, generator, *extra))
         if progress:

@@ -148,12 +148,16 @@ def test_validation_refuses_orbax_checkpoints(trained, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--model", "facebook", "--tp", "2"]])
 def test_unported_train_options_raise(trained, tmp_path, flags):
-    """Only ``--tp`` > 1 is refused (facebook trains)."""
+    """``--tp 2`` on the one CPU device is refused with the JAX CLI's rule
+    (``--device cpu`` is one device, as a JAX host without virtual
+    devices); every model takes ``--tp``. The rules on more devices:
+    ``tests/test_torch_train_mesh_cli.py``."""
     root, _ = trained
     res = CliRunner().invoke(cli, ["train", "-t", str(root / "davis"), "-v", str(root / "davis"),
                                    "-m", str(tmp_path / "ck"), "--device", "cpu", *flags])
     assert res.exit_code != 0
-    assert "--tp > 1 (tensor parallelism over several devices) is not ported" in res.output
+    assert "--tp 2 must be between 1 and the 1 available device(s)." in res.output
+    assert not (tmp_path / "ck").exists() or not list((tmp_path / "ck").iterdir())
 
 
 def test_validation_refuses_facebook_like_jax(trained):
