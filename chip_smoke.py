@@ -110,18 +110,30 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
      mesh's overhead, not a scaling) and peak memory under 0.85 of the
      card; (c) ``train --tp 2`` on ``[card] * 2`` for 2 epochs on phase
      11's tree, ``validation`` on its checkpoints over ``[card] * 2``, and
-     ``parallel/dryrun.py::dryrun_multichip([card] * 4)``, with launches.
+     ``parallel/dryrun.py::dryrun_multichip([card] * 4)``, with launches;
+ 16. wide frames and the last public names: (a) the float32 bank kernel
+     against its plain version at hd 2 x wd 960 (B = 1 and 2, a prior too
+     wide for its column table), a ragged 3 x 997 grid and two stats shards
+     combined, 14a's 480p case timed again, B = 8 in probability mode in
+     turns with float32 ``scaled_dot_product_attention``; (b) float32
+     ``inference`` through the CLI on 8 frames of 32 x 7680 (feature grid
+     4 x 960), its launches and its masks against the CPU's; (c) the
+     flagship step (``graft_entry.py::entry``) on the card against the CPU
+     (one ``affinity_propagate_fused`` launch a step), and
+     ``bottleneck_stack`` over resnet50's layer3 against the plain stack in
+     bf16 and float32.
 
 Times are medians of 20 CUDA-event timings, printed with their p10-p90
 spread. The line before the last is the card's name and power limit as
 nvidia-smi reports them, the one before that a JSON summary of every
 kernel, and before that JSON lines for the strategies, the lockstep phase,
-training, facebook, the mesh phase, float32 and phase 15.
+training, facebook, the mesh phase, float32 and phases 15 and 16.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -1912,6 +1924,29 @@ def mesh_phase(torch, dev, rng, work: Path, net, videos: dict, lockstep_videos: 
 # ---- phase 14: float32 inference (SVOS_INFER_DTYPE=float32) ----------------
 
 
+def f32_bank_inputs(torch, gen, b: int, p: int, c: int = 256, d: int = 22, d_pad: int = 24, cap: int = 45):
+    """A float32 bank (cap, b, p, c) with one-hot bf16 labels of d classes
+    in d_pad columns, and a (b, p, c) target, drawn on the card from
+    ``gen``."""
+    import torch.nn.functional as F
+
+    dev = gen.device
+    feats = torch.randn((cap, b, p, c), generator=gen, device=dev) * 0.2
+    labels = F.one_hot(torch.randint(0, d, (cap, b, p), generator=gen, device=dev), d_pad).to(torch.bfloat16)
+    return feats, labels, torch.randn((b, p, c), generator=gen, device=dev) * 0.2
+
+
+def f32_bank_compare(label: str, got, expect, gate: float = AFFINITY_GATE, d: int = 22) -> float:
+    """The float32 bank kernel's gate: max_abs over the d classes <= gate
+    and the argmax everywhere; returns max_abs."""
+    got, expect = got[..., :d, :], expect[..., :d, :]
+    max_abs = (got - expect).abs().max().item()
+    agree = (got.argmax(-2) == expect.argmax(-2)).double().mean().item()
+    log(f"{label}: max_abs={max_abs:.3e} argmax_agreement={agree}")
+    check(max_abs <= gate and agree == 1.0, f"{label} <= {gate} / 1.0")
+    return max_abs
+
+
 def f32_bank_kernel(torch, dev, rng):
     """14a: the float32 bank kernel (``csrc/affinity_bank_f32.cu``) against
     its plain version at 480p (K 9, P 6420, C 256, float32 bank, bf16
@@ -1930,19 +1965,9 @@ def f32_bank_kernel(torch, dev, rng):
     idx, valid, dense = sample_frames(50, 40, k)
     slots = idx % cap
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
-
-    def make(b, p):
-        feats = torch.randn((cap, b, p, c), generator=gen, device=dev) * 0.2
-        labels = F.one_hot(torch.randint(0, d, (cap, b, p), generator=gen, device=dev), d_pad).to(torch.bfloat16)
-        return feats, labels, torch.randn((b, p, c), generator=gen, device=dev) * 0.2
-
-    def compare(name, got, expect, gate=AFFINITY_GATE):
-        got, expect = got[..., :d, :], expect[..., :d, :]
-        max_abs = (got - expect).abs().max().item()
-        agree = (got.argmax(-2) == expect.argmax(-2)).double().mean().item()
-        log(f"14a float32 bank kernel {name}: max_abs={max_abs:.3e} argmax_agreement={agree}")
-        check(max_abs <= gate and agree == 1.0, f"float32 bank kernel {name} <= {gate} / 1.0")
-        return max_abs
+    make = functools.partial(f32_bank_inputs, torch, gen)
+    compare = lambda name, got, expect, gate=AFFINITY_GATE: f32_bank_compare(  # noqa: E731
+        f"14a float32 bank kernel {name}", got, expect, gate)
 
     feats8, labels8, tgt8 = make(8, p)
     feats, labels, tgt = feats8[:, :1].contiguous(), labels8[:, :1].contiguous(), tgt8[:1].contiguous()
@@ -2500,6 +2525,205 @@ def native_and_mesh_phase(torch, dev, work: Path, videos: dict):
             "cli": mesh_cli_and_dryrun(torch, dev, work)}
 
 
+# ---- phase 16: wide float32 frames, the last public names ------------------
+
+WIDE_HW = (2, 960)  # the feature grid of 16 x 7680 frames: 8K video's width
+WIDE_CLIP = (32, 7680, 8)  # h, w, frames of the wide float32 CLI run (feature grid 4 x 960)
+
+
+def f32_wide_bank(torch, dev, rng, ms_14a: float):
+    """16a: the float32 bank kernel against its plain version on frames of
+    any width (K 9, C 256): hd 2 x wd 960 at B = 1 and 2 (the column table
+    clamped at the prior's zero), with sigma_2 100 (a prior too wide for the
+    table: the factor per pair), a ragged 3 x 997 grid, and two stats shards
+    (the second at row_base 960) combined against the plain version; then
+    14a's 480p B = 1 case again beside 14a's time in this run, and
+    B = 8 in probability mode in turns with float32
+    ``scaled_dot_product_attention`` at batch 8."""
+    import torch.nn.functional as F
+
+    from semi_supervised_vos_tpu_torch.core.sampling import sample_frames
+    from semi_supervised_vos_tpu_torch.models.resnet import out_spatial
+    from semi_supervised_vos_tpu_torch.ops import affinity as aff
+    from semi_supervised_vos_tpu_torch.parallel.sharded_affinity import distributed_softmax_combine
+
+    c, d, d_pad, cap, k = 256, 22, 24, 45, 9
+    idx, valid, dense = sample_frames(50, 40, k)
+    slots = idx % cap
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    make = functools.partial(f32_bank_inputs, torch, gen)
+    compare = lambda name, got, expect, gate=AFFINITY_GATE: f32_bank_compare(  # noqa: E731
+        f"16a float32 bank kernel {name}", got, expect, gate)
+
+    before = (aff.affinity_from_bank_batched.launches, aff.affinity_from_bank_batched.launches_f32)
+    worst = 0.0
+    calls = 0
+    for name, (hd, wd), b, sigma_2 in (("2x960 B=1", WIDE_HW, 1, 21.0), ("2x960 B=2", WIDE_HW, 2, 21.0),
+                                       ("2x960 B=1 sigma_2 100", WIDE_HW, 1, 100.0),
+                                       ("3x997 ragged P", (3, 997), 1, 21.0)):
+        fe, la, ta = make(b, hd * wd)
+        kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense, sigma_2=sigma_2)
+        worst = max(worst, compare(name, aff.affinity_from_bank_batched(fe, la, ta, slots, **kw),
+                                   aff.affinity_from_bank_plain(fe, la, ta, slots, **kw)))
+        calls += 1
+    hd, wd = WIDE_HW
+    p = hd * wd
+    feats, labels, tgt = make(1, p)
+    kw = dict(feature_hw=WIDE_HW, temperature=1.0, valid=valid, dense=dense)
+    half = p // 2
+    stats = [aff.affinity_from_bank_batched(feats[:, :, s : s + half].contiguous(),
+                                            labels[:, :, s : s + half].contiguous(), tgt, slots, row_base=s,
+                                            return_stats=True, **kw) for s in (0, half)]
+    calls += 2
+    stats_err = compare(f"2x960 two stats shards (row_base 0, {half}) + combine vs the plain version",
+                        distributed_softmax_combine(*zip(*stats)), aff.affinity_from_bank_plain(
+                            feats, labels, tgt, slots, **kw), STATS_GATE)
+    check((aff.affinity_from_bank_batched.launches, aff.affinity_from_bank_batched.launches_f32)
+          == (before[0], before[1] + calls), f"wide float32 banks: {calls} float32 bank launches, no bf16 one")
+    wide_ms = time_ms(lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw))
+
+    # 14a's 480p case again, and B = 8 in probability mode beside float32
+    # attention over the valid slots' rows at batch 8
+    hd, wd = out_spatial(H480, W480)
+    p = hd * wd
+    feats8, labels8, tgt8 = make(8, p)
+    feats, labels, tgt = feats8[:, :1].contiguous(), labels8[:, :1].contiguous(), tgt8[:1].contiguous()
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense)
+    ms = time_ms(lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw))
+    sel = torch.as_tensor(slots[valid], device=dev)
+    q = tgt8[:, None]
+    keys = feats8[sel].permute(1, 0, 2, 3).reshape(8, 1, -1, c)
+    values = labels8[sel].float().permute(1, 0, 2, 3).reshape(8, 1, -1, d_pad)
+    run_prob = lambda: aff.affinity_from_bank_batched(feats8, labels8, tgt8, slots, spatial=False, **kw)  # noqa: E731
+    run_library = lambda: F.scaled_dot_product_attention(q, keys, values, scale=1.0)  # noqa: E731
+    sdpa_err = (run_library()[:, 0, :, :d].transpose(1, 2) - run_prob()[:, :d]).abs().max().item()
+    check(sdpa_err <= SDPA_GATE, f"float32 scaled_dot_product_attention at batch 8 agrees with the kernel <= {SDPA_GATE}")
+    turns = [time_ms(run_prob, reps=10), time_ms(run_library, reps=10), time_ms(run_library, reps=10),
+             time_ms(run_prob, reps=10)]
+    prob_ms, library_ms = min(turns[0], turns[3], key=float), min(turns[1], turns[2], key=float)
+    nbytes = k * p * (c * 4 + d_pad * 2) + p * c * 4 + d_pad * p * 4
+    prob_b_ms, prob_b_by = affinity_bound(torch, dev, k, p, wd, c, d, np.zeros(k), nbytes, PEAK_TF32_FLOPS,
+                                          products=3)
+    log(f"16a float32 bank kernel: 2x960 B=1 {wide_ms:.4f} ms; 480p B=1 {ms:.4f} ms (14a {ms_14a:.4f} ms in this run); "
+        f"480p B=8 probability mode {turns[0]:.4f} / {turns[3]:.4f} ms, float32 "
+        f"scaled_dot_product_attention at batch 8 {turns[1]:.4f} / {turns[2]:.4f} ms (max_abs {sdpa_err:.3e}), bound "
+        f"{8 * prob_b_ms:.4f} ms ({prob_b_by}); kernel / library {prob_ms / library_ms:.3f}")
+    del feats8, labels8, tgt8, keys, values
+    return dict(max_abs_err=worst, stats_max_abs_err=stats_err, wide_ms=wide_ms, ms_480p=ms, ms_480p_14a=ms_14a,
+                b8_prob_ms=prob_ms, b8_prob_bound_ms=8 * prob_b_ms,
+                b8_prob_library_ms=library_ms)
+
+
+def f32_wide_cli(torch, work: Path):
+    """16b: ``inference`` under ``SVOS_INFER_DTYPE=float32`` through the CLI
+    on a tree of one WIDE_CLIP video (feature grid 4 x 960) with phase 7's
+    resnet50 checkpoint: one float32 bank launch a propagated frame and 11
+    float32 bottleneck launches an encode call, none of the bf16 kernels;
+    its masks against ``inference --device cpu`` (float32) on >= 99.5 % of
+    pixels (phase 14's bar)."""
+    from PIL import Image
+
+    from semi_supervised_vos_tpu_torch.infer.strategies import chunk_len
+
+    h, w, n = WIDE_CLIP
+    tree, ckpt = work / "wide", work / "resnet50.pth.tar"
+    make_davis_tree(tree, {"wide": n}, (h, w), seed=5)
+    runs = {}
+    with infer_dtype("float32"):
+        for device in ("cuda", "cpu"):
+            save = work / f"wide_f32_{device}"
+            runs[device] = (save, *cli_run(torch, ["inference", "-d", str(tree), "-r", str(ckpt), "-s", str(save),
+                                                   "--device", device]))
+    (save, wall, launches), (cpu_save, cpu_wall, _) = runs["cuda"], runs["cpu"]
+    agree = png_agreement(save, cpu_save, {"wide": n}, "wide float32 card vs CPU")
+    classes = sorted(set().union(*(np.unique(np.asarray(Image.open(save / "wide" / f"{t:05d}.png"))).tolist()
+                                   for t in range(1, n))))
+    encodes = 1 + math.ceil((n - 1) / chunk_len())
+    log(f"16b float32 inference {h}x{w} (feature grid 4 x {w // 8}), {n} frames: card {wall:.3f} s, launches "
+        f"{launches}, mask classes {classes}; CPU {cpu_wall:.3f} s; card vs CPU masks {agree:.6f}")
+    check(launches == launch_counts(affinity_bank_f32=n - 1, bottleneck_f32=11 * encodes),
+          f"wide float32 inference: {n - 1} float32 bank and {11 * encodes} float32 bottleneck launches, none of the "
+          "bf16 kernels")
+    check(agree >= 0.995, "wide float32 card masks agree with the CPU's on >= 99.5% of pixels")
+    return dict(frames=n, size=[h, w], seconds=wall, cpu_seconds=cpu_wall, launches=launches, agreement=agree,
+                classes=classes)
+
+
+def entry_and_stack(torch, dev, rng, net):
+    """16c: the port's flagship step (``graft_entry.py::entry``, on the card
+    by default) against the same step on the CPU: argmax agreement >= 98 %
+    (phase 7's card-vs-CPU bar), one ``affinity_propagate_fused`` launch a
+    step and no other kernel; then ``bottleneck_stack`` over the 5 stride-1
+    blocks of resnet50's layer3, folded from ``net``, at N = 8 and 480p
+    against the plain stack: bf16 at the bottleneck gate (cosine >= 0.9999,
+    max error <= 2e-2 of the largest output) and float32 with the fold-time
+    planes (<= 1e-4), one launch a block."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from semi_supervised_vos_tpu_torch.graft_entry import entry
+    from semi_supervised_vos_tpu_torch.models.fold import fold_vosnet
+    from semi_supervised_vos_tpu_torch.models.resnet import out_spatial
+    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block_plain, bottleneck_stack
+
+    step, args = entry()
+    check(all(a.device.type == "cuda" for a in args[1:4]), "entry() puts the step's inputs on the card by default")
+    reset_kernel_launches()
+    mask = step(*args)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    cpu_args = (copy.deepcopy(args[0]).cpu(), *(a.cpu() for a in args[1:4]), args[4])
+    agree = (mask.cpu() == step(*cpu_args)).double().mean().item()
+    step_ms = time_ms(lambda: step(*args))
+    log(f"16c entry step on the card: mask {tuple(mask.shape)}, launches {launches}, argmax agreement with the CPU "
+        f"step {agree:.6f}, {step_ms:.4f} ms a step")
+    check(launches == launch_counts(affinity_propagate=1), "the entry step: one affinity_propagate_fused launch, "
+          "no other kernel")
+    check(agree >= 0.98, "the entry step's argmax agrees with the CPU step's on >= 98% of pixels")
+
+    hd, wd = out_spatial(H480, W480)
+    blocks = [f"layer3_{b}" for b in range(1, 6)]
+    x = torch.relu(torch.as_tensor(rng.standard_normal((8, hd, wd, 1024)), dtype=torch.float32, device=dev))
+    res = dict(entry=dict(launches=launches, agreement=agree, ms=step_ms), stack={})
+    for dtype in (torch.bfloat16, torch.float32):
+        table = fold_vosnet(net.to(dev), dtype)
+        wts = [table[f"{b}/fused"] for b in blocks]
+        planes = [table[f"{b}/fused_tf32"] for b in blocks] if dtype == torch.float32 else None
+        xd = x.to(dtype)
+        reset_kernel_launches()
+        got = bottleneck_stack(xd, wts, planes=planes).float()
+        torch.cuda.synchronize()
+        stack_launches = kernel_launches()
+        expect = xd
+        for blk in wts:
+            expect = bottleneck_block_plain(expect, *blk)
+        expect = expect.float()
+        rel = ((got - expect).abs().max() / expect.abs().max()).item()
+        # in float64: a float32 cosine of 50 M values is off by ~1e-5 by itself
+        cos = F.cosine_similarity(got.double().flatten(), expect.double().flatten(), dim=0).item()
+        ms = time_ms(lambda: bottleneck_stack(xd, wts, planes=planes), reps=10)
+        name = "bf16" if dtype == torch.bfloat16 else "float32"
+        log(f"16c bottleneck_stack {name}, resnet50 layer3 blocks 1-5, N=8 at 480p: max_abs/max_ref={rel:.3e} "
+            f"cos={cos:.7f}, launches {stack_launches}, {ms:.4f} ms")
+        key = "bottleneck" if dtype == torch.bfloat16 else "bottleneck_f32"
+        check(stack_launches == launch_counts(**{key: len(blocks)}), f"bottleneck_stack {name}: one {key} launch a "
+              "block, no other kernel")
+        if dtype == torch.bfloat16:
+            check(cos >= 0.9999 and rel <= 2e-2, "bottleneck_stack bf16: cos >= 0.9999, rel <= 2e-2")
+        else:
+            check(rel <= 1e-4, "bottleneck_stack float32: max error <= 1e-4 of the largest output")
+        res["stack"][name] = dict(launches=stack_launches, max_rel_err=rel, cos=cos, ms=ms)
+    return res
+
+
+def wide_and_surface_phase(torch, dev, rng, work: Path, net, f32: dict):
+    """Phase 16: the float32 bank kernel on wide frames and the wide float32
+    CLI run, the flagship step and ``bottleneck_stack``."""
+    return {"bank": f32_wide_bank(torch, dev, rng, f32["bank"]["ms"]), "cli": f32_wide_cli(torch, work),
+            "entry_and_stack": entry_and_stack(torch, dev, rng, net)}
+
+
 def main() -> int:
     if not (ROOT / "semi_supervised_vos_tpu_torch" / "__init__.py").is_file():
         log("FAILED: the semi_supervised_vos_tpu_torch package is not beside this script")
@@ -2580,6 +2804,8 @@ def main() -> int:
         f32 = float32_phase(torch, dev, rng, work, net, videos, lockstep_videos, bf16)
         stage("phase 15: native host loaders, training over a mesh, the mesh CLIs and the dry run")
         p15 = native_and_mesh_phase(torch, dev, work, videos)
+        stage("phase 16: wide float32 frames, the flagship step, bottleneck_stack")
+        p16 = wide_and_surface_phase(torch, dev, rng, work, net, f32)
     stage("summary")
     log(f"main path on {card}: {fps:.3f} fps end to end (CLI, decode and PNG writes included), "
         f"{engine_ms:.4f} ms/frame on the device (decoded frames), J&F {jf:.6f}")
@@ -2622,6 +2848,13 @@ def main() -> int:
         + "; ".join(f"{k} {mt[k]['ms']:.3f} ms ({mt[k]['ms_over_single']:.3f}x), loss relative {mt[k]['loss_rel']:.2e}, "
                     f"cosine {mt[k]['conv1_update_cos']:.7f}, peak {mt[k]['peak_share']:.4f}" for k in MESH_TRAIN_SHAPES)
         + f"; train --tp 2 {mc['train']['clips_per_s']:.3f} clips/s; dryrun_multichip in {mc['dryrun']['seconds']:.3f} s")
+    wb, wc, es = p16["bank"], p16["cli"], p16["entry_and_stack"]
+    log(f"wide float32 on {card}: bank kernel {wb['wide_ms']:.4f} ms at hd {WIDE_HW[0]} x wd {WIDE_HW[1]} (480p "
+        f"{wb['ms_480p']:.4f} ms; 14a {wb['ms_480p_14a']:.4f}), B=8 probability mode "
+        f"{wb['b8_prob_ms']:.4f} ms against float32 scaled_dot_product_attention {wb['b8_prob_library_ms']:.4f} ms; "
+        f"{wc['size'][0]}x{wc['size'][1]} CLI {wc['frames'] / wc['seconds']:.3f} fps, card vs CPU masks "
+        f"{wc['agreement']:.6f}; entry step {es['entry']['ms']:.4f} ms, agreement {es['entry']['agreement']:.6f}; "
+        "bottleneck_stack " + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in es["stack"].items()))
 
     # launches: the main path's (kernel 3: its own path's; the float32
     # variants: phase 14d's); launches_by_path: each strategy's run; prob_*:
@@ -2645,6 +2878,9 @@ def main() -> int:
         by_path[k]["train --tp 2 and validation on [card] x 2"] = mc["train"]["launches"][k] + \
             mc["validation"]["launches"][k]
         by_path[k]["dryrun_multichip([card] x 4)"] = mc["dryrun"]["launches"][k]
+        by_path[k][f"float32 single {wc['size'][0]}x{wc['size'][1]}"] = wc["launches"][k]
+        by_path[k]["entry step"] = es["entry"]["launches"][k]
+        by_path[k]["bottleneck_stack layer3 bf16 + float32"] = sum(r["launches"][k] for r in es["stack"].values())
     lk = lockstep["kernels"]
     prob_keys = dict(prob_bound_ms=prob["bound_ms"], prob_bound_by=prob["bound_by"], prob_library_ms=prob["library_ms"])
     kernels = [
@@ -2662,10 +2898,14 @@ def main() -> int:
         dict(name="affinity_propagate", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/affinity_bank.cu",
              replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:612", launches=prop_launches, **prop,
              prob_ms=prob["fused_ms"], **prob_keys,
+             launches_by_path={"entry step": es["entry"]["launches"]["affinity_propagate"]},
              launches_training=training["cli"]["launches"]["affinity_propagate"]),
         dict(name="affinity_bank_f32", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/affinity_bank_f32.cu",
              replaces="semi_supervised_vos_tpu/ops/affinity_pallas.py:355", launches=f32m["launches"]["affinity_bank_f32"],
              **f32["bank"], launches_by_path=by_path["affinity_bank_f32"],
+             wide_ms=wb["wide_ms"], wide_max_abs_err=wb["max_abs_err"], wide_stats_max_abs_err=wb["stats_max_abs_err"],
+             ms_480p_16a=wb["ms_480p"], b8_prob_ms=wb["b8_prob_ms"], b8_prob_bound_ms=wb["b8_prob_bound_ms"],
+             b8_prob_library_ms=wb["b8_prob_library_ms"],
              launches_training=training["cli"]["launches"]["affinity_bank_f32"]),
         dict(name="bottleneck_f32", route="cuda", source="semi_supervised_vos_tpu_torch/csrc/bottleneck_f32.cu",
              replaces="semi_supervised_vos_tpu/ops/bottleneck_pallas.py:121", launches=f32m["launches"]["bottleneck_f32"],
@@ -2680,6 +2920,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"float32": f32}))
     print(json.dumps({"native_and_mesh": p15}))
+    print(json.dumps({"wide_and_surface": p16}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

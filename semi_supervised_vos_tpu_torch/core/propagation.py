@@ -26,6 +26,22 @@ import torch
 NEG_INF = -1e30
 
 
+def affinity_logits(
+    ref_feats: torch.Tensor,
+    target_feat: torch.Tensor,
+    temperature: float,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Scaled similarity logits: (K, P, C) reference and (P_t, C) target
+    features → (K, P, P_t) float32, times ``temperature`` (the reference
+    multiplies, ``predict.py:52``), invalid slots (``valid`` (K,) bool) at
+    NEG_INF."""
+    sim = torch.einsum("kpc,qc->kpq", ref_feats.float(), target_feat.float()) * temperature
+    if valid is not None:
+        sim = torch.where(valid[:, None, None], sim, torch.full_like(sim, NEG_INF))
+    return sim
+
+
 def affinity_propagate(
     ref_feats: torch.Tensor,
     target_feat: torch.Tensor,
@@ -52,9 +68,7 @@ def affinity_propagate(
       (D, P_t) float32 scores.
     """
     k = ref_feats.shape[0]
-    sim = torch.einsum("kpc,qc->kpq", ref_feats.float(), target_feat.float()) * temperature
-    if valid is not None:
-        sim = torch.where(valid[:, None, None], sim, torch.full_like(sim, NEG_INF))
+    sim = affinity_logits(ref_feats, target_feat, temperature, valid)
 
     m = torch.amax(sim, dim=(0, 1), keepdim=True)
     e = torch.exp(sim - m)

@@ -9,7 +9,7 @@ affinity kernel recomputes the weight from pixel indices.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,3 +33,25 @@ def spatial_weight(
     delta = coords[None, :, :] - coords[:, None, :]
     dist2 = torch.sum(delta * delta, dim=-1)
     return torch.exp(-dist2 / (sigma**2))
+
+
+def descriptor_weight(array: torch.Tensor, p: float = 0.5) -> torch.Tensor:
+    """Signed-power descriptor weighting (reference ``predict.py:178-180``,
+    unused by any command but part of the public surface)."""
+    powed = torch.pow(array, p)
+    return torch.sign(powed) * torch.abs(powed)
+
+
+def temporal_weight(
+    frame_1: torch.Tensor,
+    frame_2: torch.Tensor,
+    sigma: float,
+    t_temp: Optional[float] = None,
+) -> torch.Tensor:
+    """Gaussian weight over per-pixel descriptor differences (reference
+    ``predict.py:183-190``, unused by any command but part of the surface)."""
+    d = frame_1 - frame_2.T
+    if t_temp is not None:
+        d = torch.where(d < t_temp, torch.zeros_like(d), d)
+    d = torch.sum(torch.pow(d, 2), dim=-1)
+    return torch.exp(-d / (sigma**2))

@@ -69,15 +69,24 @@
 //   tile on the tensor cores (mma.sync m16n8k16, B by ldmatrix.trans), as
 //   in the bf16 kernel; acc stays in registers.
 // - The prior is factored as in the bf16 kernel: a row table of TM + TQ - 1
-//   values and a column table of 2 wd - 1 per tile, double-buffered and
-//   built by both warpgroups under the next tile's products, so no exp runs
-//   per pair for it; a (bank tile, target tile) pair whose row gap gives w
-//   <= exp(-36) skips the label product.
+//   values and a column table per tile, double-buffered and built by both
+//   warpgroups under the next tile's products, so no exp runs per pair for
+//   it; a (bank tile, target tile) pair whose row gap gives w <= exp(-36)
+//   skips the label product.
+// - The column table's room does not grow with the frame: it holds the
+//   offsets |dx| <= half, half = min(wd - 1, the first |dx| whose factor
+//   expf(-dx^2 invsigma2) is exactly 0), and a farther offset reads that
+//   stored 0 at the table's end, so any width gives the bits of a full
+//   2 wd - 1 table (at 480p, wd 107, the dense slots' sigma 8 gives half
+//   89, so their far offsets are clamped; sigma 21 gives wd - 1). A prior
+//   too wide for the table's kFxLen entries (sigma above
+//   ~61 feature pixels on a frame wider than that) takes the factor from
+//   expf per pair instead, the same expression and bits.
 // - The sweep is split over blocks by the plan of bank_split.cuh and the
 //   partials are combined by affinity_combine_kernel of csrc/affinity_bank.cu.
-// Shared memory at C 256 and wd 107: A small 131,072 B + ring 5 x 8,192 +
-// small planes 5 x 8,192 + labels 2 x 3,072 + tables + barriers = 223,232
-// B of the 232,448 a block may use (225,280 at wd 240; wd up to 688).
+// Shared memory at C 256, any wd: A small 131,072 B + ring 5 x 8,192 +
+// small planes 5 x 8,192 + labels 2 x 3,072 + tables + barriers = 232,192
+// B of the 232,448 a block may use.
 // What still holds it back: the two warpgroups consume the same chunks, so
 // their softmax, prior and label products fall together and the tensor
 // cores idle meanwhile; n = 64 is a narrow wgmma; and shared memory runs
@@ -113,6 +122,11 @@ constexpr int kMaxKC = kMaxC / KC;  // chunks per bank tile
 constexpr int kLabCols = 24;     // label columns per sweep
 constexpr int kMaxSplits = 64;
 constexpr int kFyLen = TM + TQ - 1;
+constexpr int kFxHalfMax = 671;  // column-table offsets |dx| <= 671: the room left at C 256
+constexpr int kFxLen = 2 * kFxHalfMax + 1;
+// expf(-x) is exactly 0.0f for x above ~104 (the smallest float32 denormal
+// is e^-103.3); the table's end sits where x >= 120, well past that
+constexpr float kPriorZero = 120.0f;
 constexpr float kNegInf = -1e30f;
 constexpr float kTileSkipThresh = 36.0f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -141,7 +155,7 @@ struct Smem {
 // stages of a feature chunk (bank row n's 32 channels at n x 128 bytes,
 // swizzled as TMA wrote them), its small plane in the same layout and a
 // dense TM x dw label tile, then the prior tables and the barriers.
-__host__ __device__ inline Smem smem_layout(int c, int wd) {
+__host__ __device__ inline Smem smem_layout(int c) {
   (void)c;  // every width takes the room of kMaxC
   Smem o;
   o.stage = size_t(2) * kMaxKC * (KC / 4) * 1024;
@@ -150,7 +164,7 @@ __host__ __device__ inline Smem smem_layout(int c, int wd) {
   o.lab_bytes = size_t(TM) * kLabCols * 2;
   o.fy = o.lab + 2 * o.lab_bytes;  // two buffers of each table
   o.fx = align128(o.fy + 2 * kFyLen * 4);
-  o.rx = align128(o.fx + size_t(2) * (2 * wd - 1) * 4);
+  o.rx = align128(o.fx + size_t(2) * kFxLen * 4);
   o.bars = align128(o.rx + 2 * TM * 4);
   o.total = align128(o.bars + (2 * kStages + 2 * kSmall + 4) * 8);
   return o;
@@ -162,6 +176,16 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// The column table's half-width for a slot of inverse sigma^2 inv_s > 0 on
+// a frame of width wd: wd - 1 (every offset), or the first offset past
+// which expf(-dx^2 inv_s) is 0 (one more than ceil(sqrt(kPriorZero /
+// inv_s)), against the sqrt's rounding), if that is smaller. Above
+// kFxHalfMax the table does not fit and the factor is computed per pair.
+__device__ __forceinline__ int fx_half(float inv_s, int wd) {
+  const float reach = fminf(ceilf(sqrtf(kPriorZero / inv_s)), 1e9f) + 1.f;
+  return reach < float(wd - 1) ? int(reach) : wd - 1;
+}
+
 // ND: label columns of this sweep (8, 16 or 24)
 template <int ND>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -170,7 +194,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int NT = ND / 8;  // label n-tiles
   extern __shared__ __align__(1024) unsigned char smem[];
   const int C = prm.c;
-  const Smem lay = smem_layout(C, prm.wd);
+  const Smem lay = smem_layout(C);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wg = warp >> 2, wi = warp & 3;  // consumer warpgroup (0, 1; 2 is the producer)
@@ -295,16 +319,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (inv_s == 0.f) return;
     const int r0 = prm.row_base + (it - ks * prm.tiles_per_slot) * TM;
     float* fy = fy_s + buf * kFyLen;
-    float* fx = fx_s + buf * (2 * wd - 1);
+    float* fx = fx_s + buf * kFxLen;  // fx[j]: offset dx = j - half
     int* rx = rx_s + buf * TM;
     for (int j = tid; j < kFyLen; j += 32 * kConsumerWarps) {
       const float dy = float(r0 + j - (TQ - 1) - q0) / wdf;
       fy[j] = expf(-dy * dy * inv_s);
     }
-    for (int j = tid; j < 2 * wd - 1; j += 32 * kConsumerWarps) {
-      const float dx = float(j - (wd - 1));
-      fx[j] = expf(-dx * dx * inv_s);
-    }
+    const int half = fx_half(inv_s, wd);
+    if (half <= kFxHalfMax)
+      for (int j = tid; j < 2 * half + 1; j += 32 * kConsumerWarps) {
+        const float dx = float(j - half);
+        fx[j] = expf(-dx * dx * inv_s);
+      }
     for (int j = tid; j < TM; j += 32 * kConsumerWarps) rx[j] = (r0 + j) % wd;
   };
 
@@ -425,17 +451,29 @@ __global__ void __launch_bounds__(kThreads, 1)
       // ---- e w (two table reads, no exp) ---------------------------------
       if (inv_s != 0.f) {
         const float* fy = fy_s + (i & 1) * kFyLen;
-        const float* fx = fx_s + (i & 1) * (2 * wd - 1);
+        const int half = fx_half(inv_s, wd);  // uniform over the block
+        const float* fx = fx_s + (i & 1) * kFxLen + half;  // fx[dx], |dx| <= half
         const int* rx = rx_s + (i & 1) * TM;
+        if (half <= kFxHalfMax) {  // offsets past half read the stored 0 at an end
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
+          for (int n = 0; n < 8; ++n)
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int c = n * 8 + 2 * t + j;
-            const int rxc = rx[c] + wd - 1;
-            sc[n][j] *= fy[c - qloc + TQ - 1] * fx[rxc - qx[0]];
-            sc[n][j + 2] *= fy[c - qloc - 8 + TQ - 1] * fx[rxc - qx[1]];
-          }
+            for (int j = 0; j < 2; ++j) {
+              const int c = n * 8 + 2 * t + j;
+              sc[n][j] *= fy[c - qloc + TQ - 1] * fx[min(max(rx[c] - qx[0], -half), half)];
+              sc[n][j + 2] *= fy[c - qloc - 8 + TQ - 1] * fx[min(max(rx[c] - qx[1], -half), half)];
+            }
+        } else {  // a prior too wide for the table: the same factor per pair
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int c = n * 8 + 2 * t + j;
+              const float dx0 = float(rx[c] - qx[0]), dx1 = float(rx[c] - qx[1]);
+              sc[n][j] *= fy[c - qloc + TQ - 1] * expf(-dx0 * dx0 * inv_s);
+              sc[n][j + 2] *= fy[c - qloc - 8 + TQ - 1] * expf(-dx1 * dx1 * inv_s);
+            }
+        }
       }
       // ---- acc += (e w)_hi . labels + (e w)_lo . labels ------------------
 #pragma unroll
@@ -518,8 +556,8 @@ cudaError_t make_maps(const void* feats, const void* labels, long long rows, int
 }
 
 template <int ND>
-cudaError_t prepare(int c, int wd, size_t* smem) {
-  *smem = smem_layout(c, wd).total;
+cudaError_t prepare(int c, size_t* smem) {
+  *smem = smem_layout(c).total;
   return cudaFuncSetAttribute(affinity_bank_f32_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               int(*smem));
 }
@@ -541,7 +579,7 @@ extern "C" int affinity_bank_f32_plan(int k, int batch, int p_loc, int c, int p,
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   size_t smem = 0;
-  if (err == cudaSuccess) err = prepare<24>(c, wd, &smem);
+  if (err == cudaSuccess) err = prepare<24>(c, &smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, affinity_bank_f32_kernel<24>, kThreads, smem);
   if (err != cudaSuccess) return int(err);
@@ -592,13 +630,13 @@ extern "C" int affinity_bank_f32_launch(const void* bank_feats, const void* bank
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   size_t smem = 0;
   if (dw == 8) {
-    err = prepare<8>(c, wd, &smem);
+    err = prepare<8>(c, &smem);
     if (err == cudaSuccess) affinity_bank_f32_kernel<8><<<grid, kThreads, smem, s>>>(feat_map, lab_map, prm);
   } else if (dw == 16) {
-    err = prepare<16>(c, wd, &smem);
+    err = prepare<16>(c, &smem);
     if (err == cudaSuccess) affinity_bank_f32_kernel<16><<<grid, kThreads, smem, s>>>(feat_map, lab_map, prm);
   } else {
-    err = prepare<24>(c, wd, &smem);
+    err = prepare<24>(c, &smem);
     if (err == cudaSuccess) affinity_bank_f32_kernel<24><<<grid, kThreads, smem, s>>>(feat_map, lab_map, prm);
   }
   if (err != cudaSuccess) return int(err);

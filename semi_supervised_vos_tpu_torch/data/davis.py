@@ -27,6 +27,10 @@ from semi_supervised_vos_tpu_torch.utils.logging import logger
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp")
 
+# PIL >= 10 removed the ANTIALIAS alias (the reference pins Pillow 8,
+# ``datasets.py:146``); LANCZOS is the same filter.
+ANTIALIAS = getattr(Image, "ANTIALIAS", Image.LANCZOS)
+
 
 def list_image_folder(root) -> Tuple[List[Tuple[str, int]], Dict[str, int]]:
     """ImageFolder-style listing: (path, class_idx) sorted by class then path."""
@@ -235,9 +239,38 @@ class InferenceDataset:
         size2 = tuple(np.ceil(np.array(img.size) * self.scale).astype(np.int64))
         if strat == "hor-2-scale":
             img = ImageOps.mirror(img)
-        # the reference's Image.ANTIALIAS (Pillow 8), an alias of LANCZOS
-        return (frame, np.asarray(img.resize(size2, Image.LANCZOS), np.uint8)), name
+        return (frame, np.asarray(img.resize(size2, ANTIALIAS), np.uint8)), name
 
     def __iter__(self) -> Iterator:
         for i in range(len(self)):
             yield self[i]
+
+
+@dataclasses.dataclass
+class TripletLossTrainDataset:
+    """Whole-video sequence dataset grouped by video (reference
+    ``datasets.py:170-219``; dead code there, kept for surface parity).
+
+    Items are lists of ((H, W, 3) uint8 image, (H, W, 3) uint8 RGB
+    annotation) pairs, one per frame of the video."""
+
+    img_root: str
+    annotation_root: str
+
+    def __post_init__(self):
+        imgs, _ = list_image_folder(self.img_root)
+        anns, _ = list_image_folder(self.annotation_root)
+        assert len(imgs) == len(anns)
+        self.data: Dict[int, list] = {}
+        logger.info(f"Loading {len(imgs)} train image, annotation pairs.")
+        for (ip, ic), (ap, ac) in zip(imgs, anns):
+            assert ic == ac
+            self.data.setdefault(ic, []).append((Path(ip).read_bytes(), Path(ap).read_bytes()))
+        logger.info(f"Pairs loaded: {len(self.data)}.")
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __getitem__(self, index: int):
+        return [(np.asarray(Image.open(BytesIO(img)).convert("RGB"), np.uint8),
+                 np.asarray(Image.open(BytesIO(ann)).convert("RGB"), np.uint8)) for img, ann in self.data[index]]

@@ -13,8 +13,10 @@
   ``fc.*``, as the reference loads the whole swsl checkpoint
   (``vos_net.py:29-38``).
 * :func:`state_dict_from_jax` carries weights across from the JAX package:
-  flax variables (as numpy) → this module's state dict. It inverts the JAX
-  package's ``convert_vosnet_state_dict``: HWIO kernels become OIHW, and BN
+  flax variables (as numpy) → this module's state dict, for a VOSNet or a
+  bare backbone (:class:`~.resnet.ResNet`, the JAX ``ResNetBackbone``, any
+  of the six layouts). It inverts the JAX package's
+  ``convert_vosnet_state_dict``: HWIO kernels become OIHW, and BN
   ``scale/bias`` params with ``mean/var`` batch stats become
   ``weight/bias/running_mean/running_var``.
 """
@@ -96,21 +98,28 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return out
 
 
+def _block_path(stage: int, block: str, rest) -> Tuple[str, ...]:
+    if rest[0] == "downsample":
+        rest = ["downsample_conv" if rest[1] == "0" else "downsample_bn"]
+    return (f"layer{stage}_{block}", *rest)
+
+
 def _jax_module_path(module_key: str) -> Tuple[str, ...]:
-    """Torch module path (``backbone.5.0.downsample.1``) → flax module path
-    (``backbone/layer2_0/downsample_bn``)."""
+    """Torch module path → flax module path: VOSNet's
+    ``backbone.5.0.downsample.1`` → ``backbone/layer2_0/downsample_bn``, a
+    bare backbone's ``layer2.0.downsample.1`` → ``layer2_0/downsample_bn``."""
     parts = module_key.split(".")
+    if parts[0] in ("conv1", "bn1"):  # a bare backbone's stem
+        return (parts[0],)
+    if parts[0].startswith("layer"):  # and its stages
+        return _block_path(int(parts[0][len("layer"):]), parts[1], parts[2:])
     if parts[0] != "backbone":
         return ("_".join(parts),)  # adjust_dim, facebook's adjust_dim.0 / .1 (adjust_dim_0 / _1), bn256
     if parts[1] == "0":
         return ("backbone", "conv1")
     if parts[1] == "1":
         return ("backbone", "bn1")
-    stage, block = int(parts[1]) - 3, parts[2]
-    rest = parts[3:]
-    if rest[0] == "downsample":
-        rest = ["downsample_conv" if rest[1] == "0" else "downsample_bn"]
-    return ("backbone", f"layer{stage}_{block}", *rest)
+    return ("backbone", *_block_path(int(parts[1]) - 3, parts[2], parts[3:]))
 
 
 def state_dict_from_jax(variables: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:

@@ -30,17 +30,26 @@ import torch.nn.functional as F
 from torch import nn
 
 STAGE_STRIDES = (1, 2, 1, 1)
+# blocks per stage of each backbone; resnet34 and resnet152 are backbone
+# factories only (:func:`resnet34`, :func:`resnet152`): VOSNet and the CLIs
+# take the other four, as in the JAX package
 ARCH_LAYERS = {
     "resnet18": (2, 2, 2, 2),
+    "resnet34": (3, 4, 6, 3),
     "resnet50": (3, 4, 6, 3),
     "resnet101": (3, 4, 23, 3),
+    "resnet152": (3, 8, 36, 3),
     "facebook": (3, 4, 6, 3),
 }
-# stage widths of each arch (the JAX package's ``ARCH_PLANES``)
+BASIC_ARCHS = ("resnet18", "resnet34")  # basic blocks; the others bottlenecks
+# stage widths of each arch (the JAX package's ``ARCH_PLANES``; resnet34's
+# and resnet152's are ``ResNetBackbone``'s default)
 ARCH_PLANES = {
     "resnet18": (64, 128, 256, 256),
+    "resnet34": (64, 128, 256, 256),
     "resnet50": (64, 128, 256, 256),
     "resnet101": (64, 128, 256, 256),
+    "resnet152": (64, 128, 256, 256),
     "facebook": (64, 128, 256, 512),
 }
 
@@ -128,7 +137,8 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """conv1..layer4 of the VOS ResNet (the reference keeps children [0:8])."""
+    """conv1..layer4 of the VOS ResNet (the reference keeps children [0:8]):
+    the JAX package's ``ResNetBackbone``."""
 
     def __init__(self, block: str, layers: Sequence[int], stage_planes: Sequence[int]):
         super().__init__()
@@ -155,14 +165,45 @@ class ResNet(nn.Module):
         return [self.conv1, self.bn1, self.relu, self.maxpool,
                 self.layer1, self.layer2, self.layer3, self.layer4]
 
+    def forward(self, x):
+        """(B, 3, H, W) → (B, out_channels, ceil(H/8), ceil(W/8)) (NCHW)."""
+        for m in self.children_for_vos():
+            x = m(x)
+        return x
+
 
 def resnet(model: str) -> ResNet:
-    """resnet18 (basic blocks) or resnet50 / resnet101 / facebook
-    (bottlenecks)."""
+    """resnet18 / resnet34 (basic blocks) or resnet50 / resnet101 /
+    resnet152 / facebook (bottlenecks)."""
     if model not in ARCH_LAYERS:
         raise NotImplementedError(f"unknown model {model!r}")
-    block = "basic" if model == "resnet18" else "bottleneck"
+    block = "basic" if model in BASIC_ARCHS else "bottleneck"
     return ResNet(block, ARCH_LAYERS[model], ARCH_PLANES[model])
+
+
+def resnet18() -> ResNet:
+    """Reference ``resnet.py:159-173`` (VOS topology, stride 8)."""
+    return resnet("resnet18")
+
+
+def resnet34() -> ResNet:
+    """Reference ``resnet.py:176-184``."""
+    return resnet("resnet34")
+
+
+def resnet50() -> ResNet:
+    """Reference ``resnet.py:187-200``."""
+    return resnet("resnet50")
+
+
+def resnet101() -> ResNet:
+    """Reference ``resnet.py:203-216``."""
+    return resnet("resnet101")
+
+
+def resnet152() -> ResNet:
+    """Reference ``resnet.py:219-227``."""
+    return resnet("resnet152")
 
 
 def out_spatial(h: int, w: int) -> Tuple[int, int]:

@@ -16,13 +16,14 @@ weights K-major and pre-split into tf32 ``big`` and ``small`` planes
 (``models/fold.py``) and this wrapper otherwise makes per call.
 
 On a CPU tensor the wrapper runs :func:`bottleneck_block_plain`; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. :func:`bottleneck_stack` (the JAX
+``bottleneck_stack``) runs blocks in sequence, one wrapper call each.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -169,3 +170,22 @@ def bottleneck_block(x, w1, b1, w2, b2, w3, b3, *, planes: Optional[TF32Planes] 
 
 bottleneck_block.launches = 0  # csrc/bottleneck.cu
 bottleneck_block.launches_f32 = 0  # csrc/bottleneck_f32.cu
+
+
+def bottleneck_stack(x, blocks, *, planes: Optional[Sequence[Optional[TF32Planes]]] = None) -> torch.Tensor:
+    """A sequence of fused bottleneck blocks: the port of
+    ``semi_supervised_vos_tpu/ops/bottleneck_pallas.py::bottleneck_stack``.
+
+    ``blocks`` is a sequence of (w1, b1, w2, b2, w3, b3) tuples, each as
+    :func:`bottleneck_block` takes them (a folded table's
+    ``layer<S>_<B>/fused``); ``planes`` optionally one :class:`TF32Planes`
+    (or None) per block, for float32 activations on the card. Each block is
+    one :func:`bottleneck_block` call: one kernel launch, counted as such,
+    on the card, its plain version on the CPU. The activation goes through
+    device memory between blocks."""
+    planes = [None] * len(blocks) if planes is None else list(planes)
+    if len(planes) != len(blocks):
+        raise ValueError(f"{len(planes)} planes for {len(blocks)} blocks")
+    for blk, pl in zip(blocks, planes):
+        x = bottleneck_block(x, *blk, planes=pl)
+    return x

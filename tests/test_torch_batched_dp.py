@@ -1,28 +1,25 @@
 """Port parity for lockstep inference over a mesh on the CPU:
 ``DataParallelBatchedEngine`` (lanes over the data rows, optionally bank rows
 over each row's devices) against the JAX package's on the 8 virtual host
-devices and against the port's one-device lockstep engine; the CLI's
-``--bank-shards`` / ``--dp-shards`` on a virtual CPU mesh against the port's
-unsharded runs, for all seven strategies; the CLI's refusals."""
+devices and against the port's one-device lockstep engine; how the CLI
+counts cards and the lane cap scales over a mesh. The CLI's
+``--bank-shards`` / ``--dp-shards`` runs are in ``test_torch_batched_dp_pngs.py``,
+its refusals in ``test_torch_batched_dp_cli.py``."""
 
 import jax
 import numpy as np
 import pytest
 import torch
-from click.testing import CliRunner
-from PIL import Image
 
 from semi_supervised_vos_tpu.infer.batched import LaneFusion as JLaneFusion
 from semi_supervised_vos_tpu.infer.engine import EngineConfig as JConfig
-from semi_supervised_vos_tpu.models.convert import export_torch_checkpoint
 from semi_supervised_vos_tpu.parallel.batched_dp import DataParallelBatchedEngine as JDataParallel
 from semi_supervised_vos_tpu.parallel.mesh import make_mesh as jmake_mesh
-from semi_supervised_vos_tpu_torch.__main__ import cli
 from semi_supervised_vos_tpu_torch.infer import batched
 from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig
 from semi_supervised_vos_tpu_torch.parallel.batched_dp import BankShardedBatchedEngine, DataParallelBatchedEngine
 from semi_supervised_vos_tpu_torch.parallel.mesh import make_mesh
-from tests.helpers import make_davis_dataset
+from tests.test_torch_batched_dp_cli import one_compute_thread  # noqa: F401  (an autouse fixture)
 from tests.test_torch_models import jax_variables, port_net
 
 H, W = 40, 48  # a 5 x 6 feature grid: P = 30, ragged over 4 bank shards
@@ -108,101 +105,6 @@ def test_mesh_engine_matches_jax_and_lockstep(rng, nets, name, n_data, n_bank, v
         seen.update(np.unique(ref.numpy()).tolist())
     assert len(seen) > 1  # the masks are not constant
     assert min(agree) >= (0.999 if n_bank > 1 else 1.0), agree
-
-
-@pytest.fixture(scope="module")
-def davis_and_ckpt(tmp_path_factory):
-    root = tmp_path_factory.mktemp("davis_dp")
-    make_davis_dataset(root, videos=("blackswan", "camel", "dog"), frames=5, size=(40, 48), objects=2)
-    _, variables = jax_variables("resnet18", 1)
-    ckpt = root / "ckpt.pth.tar"
-    export_torch_checkpoint(jax.tree_util.tree_map(np.array, variables), str(ckpt), "resnet18")
-    return root, ckpt
-
-
-# every strategy, and probability mode with one stream and with two fused
-STRATEGIES = {name: ["--inference-strategy", name]
-              for name in ("single", "hor-flip", "vert-flip", "2-scale", "hor-2-scale", "multimodel", "3-scale")}
-STRATEGIES["single-probability"] = ["--probability"]
-STRATEGIES["hor-flip-probability-maximum"] = ["--inference-strategy", "hor-flip", "--probability",
-                                              "--fusion", "maximum"]
-
-
-def _run(root, ckpt, save, *flags):
-    args = ["inference", "-d", str(root), "-r", str(ckpt), "-m", "resnet18", "-s", str(save), "--device", "cpu",
-            *flags]
-    if "multimodel" in flags:
-        args += ["--additional-model", str(ckpt), "--additional-model-type", "resnet18"]
-    return CliRunner().invoke(cli, args)
-
-
-@pytest.fixture(scope="module")
-def unsharded(davis_and_ckpt, tmp_path_factory):
-    """Each strategy's PNGs from the port's unsharded run, one video at a
-    time, made once."""
-    root, ckpt = davis_and_ckpt
-    out = {}
-    for strategy, flags in STRATEGIES.items():
-        save = tmp_path_factory.mktemp(f"unsharded_{strategy}")
-        res = _run(root, ckpt, save, *flags)
-        assert res.exit_code == 0, res.output
-        out[strategy] = {p.relative_to(save): p.read_bytes() for p in sorted(save.rglob("*.png"))}
-    return out
-
-
-@pytest.mark.parametrize("strategy", list(STRATEGIES))
-@pytest.mark.parametrize("mesh_flags", [["--bank-shards", "2"],
-                                        ["--video-batch", "4", "--dp-shards", "2", "--bank-shards", "2"]],
-                         ids=["bank2", "vb4-dp2-bank2"])
-def test_cli_mesh_pngs_equal_unsharded(davis_and_ckpt, unsharded, tmp_path, strategy, mesh_flags):
-    """``--device cpu`` on a virtual mesh (the CPU named 2 or 4 times):
-    every strategy's PNGs, and probability mode's, byte-identical to the
-    port's unsharded run (3 videos: the lockstep group of 4 pads to whole
-    videos per data row)."""
-    root, ckpt = davis_and_ckpt
-    res = _run(root, ckpt, tmp_path, *STRATEGIES[strategy], *mesh_flags)
-    assert res.exit_code == 0, res.output
-    got = {p.relative_to(tmp_path): p.read_bytes() for p in sorted(tmp_path.rglob("*.png"))}
-    expect = unsharded[strategy]
-    assert len(expect) == 15 and got.keys() == expect.keys()
-    assert got == expect
-    classes = set()
-    for rel in got:
-        classes.update(np.unique(np.asarray(Image.open(tmp_path / rel))).tolist())
-    assert classes == {0, 1, 2}
-
-
-def test_inference_single_sharded_is_single_with_a_mesh(davis_and_ckpt, unsharded, tmp_path):
-    """``strategies.inference_single_sharded``, the JAX package's alias, on
-    a 3-shard CPU mesh writes the unsharded run's PNGs."""
-    from semi_supervised_vos_tpu_torch.data.davis import InferenceDataset
-    from semi_supervised_vos_tpu_torch.infer import strategies
-    from semi_supervised_vos_tpu_torch.models.convert import load_torch_checkpoint
-    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
-
-    root, ckpt = davis_and_ckpt
-    net = load_torch_checkpoint(ckpt, VOSNet("resnet18"))
-    dataset = InferenceDataset(str(root / "JPEGImages" / "480p"), inference_strategy="single")
-    mesh = make_mesh(1, 3, devices=[torch.device("cpu")] * 3)
-    strategies.inference_single_sharded(dataset, root / "Annotations" / "480p", tmp_path, net, EngineConfig(), mesh)
-    got = {p.relative_to(tmp_path): p.read_bytes() for p in sorted(tmp_path.rglob("*.png"))}
-    assert got == unsharded["single"]
-
-
-@pytest.mark.parametrize(
-    "flags,message",
-    [(["--bank-shards", "0"], "--dp-shards and --bank-shards must be >= 1."),
-     (["--video-batch", "2", "--dp-shards", "0"], "--dp-shards and --bank-shards must be >= 1."),
-     (["--dp-shards", "2"], "--dp-shards requires --video-batch > 1 (it shards lockstep video lanes over chips)."),
-     (["--dp-shards", "2", "--bank-shards", "2"], "--dp-shards requires --video-batch > 1")],
-)
-def test_cli_mesh_refusals(davis_and_ckpt, tmp_path, flags, message):
-    """The JAX CLI's refusals, with its messages, before any PNG is written."""
-    root, ckpt = davis_and_ckpt
-    res = _run(root, ckpt, tmp_path, *flags)
-    assert res.exit_code != 0
-    assert message in res.output
-    assert not list(tmp_path.rglob("*.png"))
 
 
 def test_cli_counts_cards_on_the_card_only(monkeypatch):

@@ -578,6 +578,116 @@ def test_f32_bottleneck_kernel_matches_plain(card, nprng, monkeypatch, n, h, w, 
 
 
 @pytest.mark.parametrize(
+    "hd,wd,b,sigma_2,row_base,stats",
+    [(2, 960, 1, 21.0, 0, False), (2, 960, 2, 21.0, 0, False), (2, 960, 1, 100.0, 0, False),
+     (3, 997, 1, 21.0, 0, False), (2, 960, 1, 21.0, 960, True)],
+)
+def test_f32_bank_kernel_wide_frames(card, nprng, hd, wd, b, sigma_2, row_base, stats):
+    """The float32 bank kernel on frames of 8K width (feature width 960,
+    ragged 997), where its column table holds only the prior's reach (at
+    sigma_2 100 the prior is too wide for the table and the factor is taken
+    per pair), and a stats shard at row_base 960: against the plain
+    version, max_abs <= 3.4e-5 (stats 3.2e-5) and the argmax everywhere."""
+    c, d_pad, cap, k = 256, 24, 45, 9
+    p = hd * wd
+    _, labels = _bank(nprng, card, cap, b, p - row_base, c, d_pad)
+    feats = torch.as_tensor(nprng.standard_normal((cap, b, p - row_base, c)) * 0.2, dtype=torch.float32,
+                            device=card)
+    tgt = torch.as_tensor(nprng.standard_normal((b, p, c)) * 0.2, dtype=torch.float32, device=card)
+    idx, valid, dense = sample_frames(50, 40, k)
+    kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense, sigma_2=sigma_2, row_base=row_base,
+              return_stats=stats)
+    before = tap.affinity_from_bank_batched.launches_f32
+    got = tap.affinity_from_bank_batched(feats, labels, tgt, idx % cap, **kw)
+    torch.cuda.synchronize()
+    assert tap.affinity_from_bank_batched.launches_f32 == before + 1
+    expect = tap.affinity_from_bank_plain(feats, labels, tgt, idx % cap, **kw)
+    if stats:
+        for g, e in zip(got, expect):
+            torch.testing.assert_close(g, e, rtol=1e-4, atol=3.2e-5)
+        got, expect = got[2] / got[1][:, None], expect[2] / expect[1][:, None]
+    torch.testing.assert_close(got, expect, rtol=1e-4, atol=3.4e-5)
+    assert (got[:, :22].argmax(1) == expect[:, :22].argmax(1)).all()
+
+
+def test_f32_plan_passes_wide_frames(monkeypatch):
+    """Needs no card: ``ops/affinity.py::_plan`` hands any frame width to
+    the kernel's plan unchanged (the width limit was the kernel's own shared
+    memory, not the Python side's)."""
+    import contextlib
+
+    calls = []
+
+    class Lib:
+        def affinity_bank_f32_plan(self, k, b, p_loc, c, p, wd, splits, ips):
+            calls.append((k, b, p_loc, c, p, wd))
+            splits._obj.value, ips._obj.value = 3, 5
+            return 0
+
+    monkeypatch.setattr(tap, "_library", lambda name="affinity_bank": Lib())
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    tap._plan.cache_clear()
+    try:
+        assert tap._plan("affinity_bank_f32", 0, 9, 1, 540 * 960, 256, 540 * 960, 960) == (3, 5)
+        assert tap._plan("affinity_bank_f32", 0, 9, 8, 4 * 4152, 256, 4 * 4152, 4152) == (3, 5)
+    finally:
+        tap._plan.cache_clear()
+    assert calls == [(9, 1, 540 * 960, 256, 540 * 960, 960), (9, 8, 4 * 4152, 256, 4 * 4152, 4152)]
+
+
+def test_entry_step_launches_kernel_3(card):
+    """The flagship step (``graft_entry.py::entry``) on the card by default:
+    one ``affinity_propagate_fused`` launch a step and no other kernel; its
+    argmax against the same step on the CPU on >= 98 % of pixels."""
+    import copy
+
+    from semi_supervised_vos_tpu_torch.graft_entry import entry
+
+    step, args = entry()
+    assert all(a.device.type == "cuda" for a in args[1:4])
+    counts = lambda: (tap.affinity_from_bank_batched.launches, tap.affinity_propagate_fused.launches,  # noqa: E731
+                      tap.affinity_from_bank_batched.launches_f32, tb.bottleneck_block.launches,
+                      tb.bottleneck_block.launches_f32)
+    before = counts()
+    mask = step(*args)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [0, 1, 0, 0, 0]
+    cpu_mask = step(copy.deepcopy(args[0]).cpu(), *(a.cpu() for a in args[1:4]), args[4])
+    assert (mask.cpu() == cpu_mask).double().mean() >= 0.98
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bottleneck_stack_on_card(card, nprng, monkeypatch, dtype):
+    """``bottleneck_stack`` over three blocks: one launch a block of the
+    dtype's kernel, against the plain blocks in sequence (bf16: the
+    bottleneck gate; float32, TF32 off: 1e-4 of the largest output)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    n, h, w, c, c4 = 2, 13, 27, 1024, 256
+    x = torch.relu(torch.as_tensor(nprng.standard_normal((n, h, w, c)), dtype=torch.float32, device=card)).to(dtype)
+    shapes = [(c, c4), (c4,), (3, 3, c4, c4), (c4,), (c4, c), (c,)]
+    blocks = [[torch.as_tensor(nprng.standard_normal(s) * (0.03 if len(s) > 1 else 0.1), dtype=torch.float32,
+                               device=card) for s in shapes] for _ in range(3)]
+    blocks = [tuple(t.to(dtype) if len(t.shape) > 1 else t for t in blk) for blk in blocks]
+    before = (tb.bottleneck_block.launches, tb.bottleneck_block.launches_f32)
+    got = tb.bottleneck_stack(x, blocks).float()
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    assert (tb.bottleneck_block.launches, tb.bottleneck_block.launches_f32) == (before[0] + 3 * (not f32),
+                                                                                before[1] + 3 * f32)
+    expect = x
+    for blk in blocks:
+        expect = tb.bottleneck_block_plain(expect, *blk)
+    expect = expect.float()
+    rel = ((got - expect).abs().max() / expect.abs().max()).item()
+    if f32:
+        assert rel <= 1e-4
+    else:
+        cos = torch.nn.functional.cosine_similarity(got.double().flatten(), expect.double().flatten(), dim=0)
+        assert cos >= 0.9999 and rel <= 2e-2
+
+
+@pytest.mark.parametrize(
     "c,d_pad,n_cls,hd,wd,row_base,stats",
     [(256, 8, 6, 16, 20, 0, False), (256, 16, 13, 16, 20, 0, False), (256, 24, 22, 13, 27, 0, False),
      (256, 48, 40, 16, 20, 0, False), (128, 24, 22, 16, 20, 0, False), (48, 16, 13, 13, 27, 0, False),
