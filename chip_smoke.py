@@ -121,13 +121,19 @@ Phases, each printed as it runs (any failure exits non-zero, and the final
      flagship step (``graft_entry.py::entry``) on the card against the CPU
      (one ``affinity_propagate_fused`` launch a step), and
      ``bottleneck_stack`` over resnet50's layer3 against the plain stack in
-     bf16 and float32.
+     bf16 and float32;
+ 17. the port's two benches, each in a process of its own on the card at a
+     reduced protocol: ``python -m semi_supervised_vos_tpu_torch.bench``
+     (one pass, no strategy matrix, no train or 1080p pin) and
+     ``.bench_train`` (one pass); their last JSON lines parsed, the
+     kernel checks held to the gates above, the sharded engines' masks
+     equal, both ``mfu`` in (0, 1].
 
 Times are medians of 20 CUDA-event timings, printed with their p10-p90
 spread. The line before the last is the card's name and power limit as
 nvidia-smi reports them, the one before that a JSON summary of every
 kernel, and before that JSON lines for the strategies, the lockstep phase,
-training, facebook, the mesh phase, float32 and phases 15 and 16.
+training, facebook, the mesh phase, float32 and phases 15 to 17.
 """
 
 from __future__ import annotations
@@ -147,11 +153,20 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
-PEAK_F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
-PEAK_TF32_FLOPS = 495e12  # H100 SXM dense tf32 tensor-core rate (3xTF32: three products)
-MUFU_EXP_PER_CLOCK_PER_SM = 16  # ex2 results per clock per SM on compute capability 9.0
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
+PACKAGE = ROOT / "semi_supervised_vos_tpu_torch"
+if (PACKAGE / "__init__.py").is_file():  # else main() says that the package is missing
+    sys.path.insert(0, str(ROOT))
+    from semi_supervised_vos_tpu_torch.utils.benchmarking import (
+        PEAK_F32_FLOPS,
+        PEAK_TF32_FLOPS,
+        affinity_bound,
+        bound,
+        card_line,
+        conv_flops,
+        kernel_launches,
+        time_ms,
+        timing_keys,
+    )
 AFFINITY_GATE = 3.4e-5  # max_abs of the bank kernel vs float32 (JAX on-chip gate)
 STATS_GATE = 3.2e-5  # combined stats shards vs float32 (JAX on-chip gate)
 # scaled_dot_product_attention returns bf16: half an ulp at 1.0 is 2e-3, and
@@ -179,102 +194,10 @@ def stage(name: str) -> None:
     log(f"== {name} (at {time.perf_counter() - START:.1f} s)")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-class Timing(float):
-    """Median ms of a timing, carrying the spread of its reps (``lo`` and
-    ``hi``: the 10th and 90th percentiles)."""
-
-    def __new__(cls, times):
-        times = sorted(times)
-        self = super().__new__(cls, statistics.median(times))
-        pick = lambda f: times[min(len(times) - 1, int(round(f * (len(times) - 1))))]  # noqa: E731
-        self.lo, self.hi = pick(0.1), pick(0.9)
-        return self
-
-    def __format__(self, spec):
-        return f"{float(self):{spec}} [p10 {self.lo:{spec}}, p90 {self.hi:{spec}}]"
-
-
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> Timing:
-    """Median of ``reps`` CUDA-event timings of ``fn``, with their p10-p90
-    spread."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return Timing(times)
-
-
-def timing_keys(prefix: str, t: Timing) -> dict:
-    return {prefix: float(t), f"{prefix}_p10": t.lo, f"{prefix}_p90": t.hi}
-
-
-def mufu_exp_rate() -> float:
-    """exps per second of the card's MUFU pipe: MUFU_EXP_PER_CLOCK_PER_SM x
-    SMs x the maximum SM clock that nvidia-smi reports."""
-    import torch
-
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    mhz = float(out.stdout.strip().splitlines()[0])
-    return MUFU_EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
-
-
-def bound(tensor_ops, nbytes: float, exps: float = 0.0, peak: float = PEAK_BF16_FLOPS):
-    """Least time (ms) for the work, and what sets it: the largest of the
-    operations at their peak rate (``peak``: bf16 tensor cores, or
-    PEAK_F32_FLOPS / PEAK_TF32_FLOPS for float32 work; ``tensor_ops`` may
-    also be a list of (operations, rate) pairs, whose times add), the exps
-    at the MUFU pipe's rate (both "operations") and the bytes at the memory
-    rate."""
-    terms = tensor_ops if isinstance(tensor_ops, (list, tuple)) else [(tensor_ops, peak)]
-    t_tensor = sum(ops / rate for ops, rate in terms) * 1e3
-    t_exp = exps / mufu_exp_rate() * 1e3 if exps else 0.0
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = max(t_tensor, t_exp)
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"FAILED: {what}")
     log(f"  ok: {what}")
-
-
-def affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes, peak: float = PEAK_BF16_FLOPS,
-                   products: int = 1):
-    """Least time (ms) of one propagation of a P-pixel frame over K slots,
-    counting the work this frame's data needs: the similarity (2·K·P²·C)
-    and the softmax exp of every pair; the label product (2·D a pair) where
-    the prior is not below exp(-36), which is every pair in probability
-    mode (inverse sigma² 0); the prior factored into a row and a column
-    factor, 2·P − 1 + 2·wd − 1 exps for each slot that has one. With
-    ``products`` 3 (float32 accuracy on tf32 tensor cores, ``peak``
-    PEAK_TF32_FLOPS) the similarity counts three times at ``peak`` and the
-    label product twice (bf16 hi and lo) at the bf16 rate."""
-    y = torch.arange(p, device=dev, dtype=torch.float32) / wd
-    dy2 = (y[:, None] - y[None, :]) ** 2
-    near = [int((dy2 * float(s) < 36.0).sum()) for s in inv_sigma2]
-    sim, lab = 2.0 * k * p * p * c, 2.0 * sum(near) * d
-    terms = [(sim + lab, peak)] if products == 1 else [(products * sim, peak), (2 * lab, PEAK_BF16_FLOPS)]
-    exps = k * p * p + sum(2 * p - 1 + 2 * wd - 1 for s in inv_sigma2 if s > 0)
-    return bound(terms, nbytes, exps)
 
 
 # ---- phase 2: affinity ---------------------------------------------------
@@ -390,7 +313,7 @@ def affinity_phase(torch, dev, rng):
     plain_ms = time_ms(run_plain)
     _, inv_sigma2, _ = aff.slot_table(slots, valid, dense, 8.0, 21.0, True)
     nbytes = k * p * (c + d_pad) * 2 + p * c * 4 + d_pad * p * 4
-    b_ms, b_by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes)
+    b_ms, b_by = affinity_bound(dev, k, p, wd, c, d, inv_sigma2, nbytes)
     log(f"affinity 480p: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     res.update(max_abs_err=max_abs, **timing_keys("ms", ms), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=None)
@@ -483,7 +406,7 @@ def propagate_phase(torch, dev, rng):
     plain_ms = time_ms(run_plain)
     _, inv_sigma2, _ = aff.slot_table(np.arange(k), valid, dense, 8.0, 21.0, True)
     nbytes = (k * p * (c + d) + p * c) * 4 + d * p * 4  # float32 ref, labels and target in; scores out
-    b_ms, b_by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes)
+    b_ms, b_by = affinity_bound(dev, k, p, wd, c, d, inv_sigma2, nbytes)
     log(f"propagate 480p: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=worst, **timing_keys("ms", ms), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
@@ -545,7 +468,7 @@ def probability_phase(torch, dev, rng):
     res["fused_ms"] = time_ms(run_fused)
     res["library_ms"] = time_ms(run_library)
     nbytes = k * p * (c + d_pad) * 2 + p * c * 2 + d_pad * p * 4
-    res["bound_ms"], res["bound_by"] = affinity_bound(torch, dev, k, p, wd, c, d, np.zeros(k), nbytes)
+    res["bound_ms"], res["bound_by"] = affinity_bound(dev, k, p, wd, c, d, np.zeros(k), nbytes)
     log(f"probability mode 480p: affinity_bank {res['bank_ms']:.4f} ms, affinity_propagate {res['fused_ms']:.4f} ms, "
         f"scaled_dot_product_attention {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
         f"affinity_bank / library {res['bank_ms'] / res['library_ms']:.3f}, "
@@ -1265,8 +1188,8 @@ def lockstep_kernels(torch, dev, rng):
             continue
         _, inv_sigma2, _ = aff.slot_table(slots, valid, dense, 8.0, 21.0, True)
         nbytes = k * p * (c + d_pad) * 2 + p * c * 4 + d_pad * p * 4
-        b1_ms, by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes)
-        b1_prob, by_prob = affinity_bound(torch, dev, k, p, wd, c, d, np.zeros(k), nbytes)
+        b1_ms, by = affinity_bound(dev, k, p, wd, c, d, inv_sigma2, nbytes)
+        b1_prob, by_prob = affinity_bound(dev, k, p, wd, c, d, np.zeros(k), nbytes)
         kw = dict(feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense)
         ms = time_ms(lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw))
         prob_ms = time_ms(lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, spatial=False, **kw))
@@ -1410,18 +1333,6 @@ CARD_VS_CPU_MIN_COS = 0.99999
 LAUNCH_KEYS = ("affinity_bank", "affinity_propagate", "bottleneck", "affinity_bank_f32", "bottleneck_f32")
 
 
-def kernel_launches():
-    """Every kernel's launch count: the bf16 bank kernel, kernel 3 (on the
-    same source), the bf16 bottleneck and the two float32 variants."""
-    from semi_supervised_vos_tpu_torch.ops import affinity as aff
-    from semi_supervised_vos_tpu_torch.ops.bottleneck import bottleneck_block
-
-    return {"affinity_bank": aff.affinity_from_bank_batched.launches,
-            "affinity_propagate": aff.affinity_propagate_fused.launches, "bottleneck": bottleneck_block.launches,
-            "affinity_bank_f32": aff.affinity_from_bank_batched.launches_f32,
-            "bottleneck_f32": bottleneck_block.launches_f32}
-
-
 def launch_counts(**counts) -> dict:
     """Expected launch counts: the named ones, 0 for every other kernel."""
     return {key: counts.get(key, 0) for key in LAUNCH_KEYS}
@@ -1434,21 +1345,6 @@ def reset_kernel_launches():
     aff.affinity_from_bank_batched.launches = aff.affinity_propagate_fused.launches = 0
     bottleneck_block.launches = 0
     aff.affinity_from_bank_batched.launches_f32 = bottleneck_block.launches_f32 = 0
-
-
-def conv_flops(torch, net, x) -> float:
-    """Multiply-adds x 2 of every convolution in one forward of ``x``."""
-    total = []
-
-    def hook(m, inp, out):
-        total.append(2.0 * out.numel() * m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1])
-
-    handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
-    with torch.no_grad():
-        net.eval()(x)
-    for h in handles:
-        h.remove()
-    return sum(total)
 
 
 def training_steps(torch, dev, work: Path, arch: str = "resnet50", runs=TRAIN_RUNS,
@@ -1473,7 +1369,7 @@ def training_steps(torch, dev, work: Path, arch: str = "resnet50", runs=TRAIN_RU
     net = build_train_net(arch, dev)
     start = {k: v.clone() for k, v in net.state_dict().items()}
     x = (imgs_d.reshape(-1, TRAIN_CROP, TRAIN_CROP, 3).float() / 255.0).permute(0, 3, 1, 2)
-    fwd_flops = conv_flops(torch, net, x)
+    fwd_flops = conv_flops(net, x)
     del x
     total = torch.cuda.get_device_properties(0).total_memory
     log(f"train batch {tuple(imgs.shape)} uint8; {arch} forward {fwd_flops / 1e12:.4f} TFLOP of convolutions a step "
@@ -2010,10 +1906,10 @@ def f32_bank_kernel(torch, dev, rng):
     # FFMA bound and the plain version
     _, inv_sigma2, _ = aff.slot_table(slots, valid, dense, 8.0, 21.0, True)
     nbytes = k * p * (c * 4 + d_pad * 2) + p * c * 4 + d_pad * p * 4
-    b_ms, b_by = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes, PEAK_TF32_FLOPS, products=3)
-    prob_b_ms, prob_b_by = affinity_bound(torch, dev, k, p, wd, c, d, np.zeros(k), nbytes, PEAK_TF32_FLOPS,
+    b_ms, b_by = affinity_bound(dev, k, p, wd, c, d, inv_sigma2, nbytes, PEAK_TF32_FLOPS, products=3)
+    prob_b_ms, prob_b_by = affinity_bound(dev, k, p, wd, c, d, np.zeros(k), nbytes, PEAK_TF32_FLOPS,
                                           products=3)
-    ffma_ms, _ = affinity_bound(torch, dev, k, p, wd, c, d, inv_sigma2, nbytes, PEAK_F32_FLOPS)
+    ffma_ms, _ = affinity_bound(dev, k, p, wd, c, d, inv_sigma2, nbytes, PEAK_F32_FLOPS)
     run = lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw)  # noqa: E731
     ms_turns = [time_ms(run)]
     plain_ms = time_ms(lambda: aff.affinity_from_bank_plain(feats, labels, tgt, slots, **kw))
@@ -2602,7 +2498,7 @@ def f32_wide_bank(torch, dev, rng, ms_14a: float):
              time_ms(run_prob, reps=10)]
     prob_ms, library_ms = min(turns[0], turns[3], key=float), min(turns[1], turns[2], key=float)
     nbytes = k * p * (c * 4 + d_pad * 2) + p * c * 4 + d_pad * p * 4
-    prob_b_ms, prob_b_by = affinity_bound(torch, dev, k, p, wd, c, d, np.zeros(k), nbytes, PEAK_TF32_FLOPS,
+    prob_b_ms, prob_b_by = affinity_bound(dev, k, p, wd, c, d, np.zeros(k), nbytes, PEAK_TF32_FLOPS,
                                           products=3)
     log(f"16a float32 bank kernel: 2x960 B=1 {wide_ms:.4f} ms; 480p B=1 {ms:.4f} ms (14a {ms_14a:.4f} ms in this run); "
         f"480p B=8 probability mode {turns[0]:.4f} / {turns[3]:.4f} ms, float32 "
@@ -2724,8 +2620,56 @@ def wide_and_surface_phase(torch, dev, rng, work: Path, net, f32: dict):
             "entry_and_stack": entry_and_stack(torch, dev, rng, net)}
 
 
+# ---- phase 17: the benches ------------------------------------------------
+
+
+BENCH_ENV = {"SVOS_BENCH_PASSES": "1", "SVOS_BENCH_STRATEGIES": "0", "SVOS_BENCH_FULL": "0"}
+BENCH_TRAIN_ENV = {"SVOS_BENCH_PASSES": "1"}
+
+
+def bench_line(module: str, env: dict) -> dict:
+    """Run ``python -m semi_supervised_vos_tpu_torch.<module>`` on the card
+    with ``env`` added; its last stdout line, parsed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"semi_supervised_vos_tpu_torch.{module}"], cwd=ROOT,
+                          env={**os.environ, **env}, capture_output=True, text=True, timeout=900)
+    for line in proc.stderr.strip().splitlines()[-12:]:
+        log(f"  {module}: {line}")
+    check(proc.returncode == 0, f"{module} exits 0 (in {time.perf_counter() - t0:.1f} s)")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def bench_phase(torch) -> dict:
+    """Phase 17: both benches at a reduced protocol, their checks held to
+    the kernel gates."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the benches' processes need the card's memory
+    inf = bench_line("bench", BENCH_ENV)
+    kc, sc = inf["kernel_check"], inf["sharded_kernel_check"]
+    log(f"bench: value {inf['value']:.3f} frames/s, mfu {inf['mfu']:.6f} at {inf['gflop_per_frame']:.3f} GFLOP a "
+        f"frame, phase_ms {inf['phase_ms']}, kernel_check {kc}, sharded_kernel_check {sc}")
+    check(max(kc["max_abs_diff"], kc["batched_max_abs_diff"]) <= AFFINITY_GATE
+          and kc["argmax_agreement"] == kc["batched_argmax_agreement"] == 1.0,
+          f"bench kernel check <= {AFFINITY_GATE} / 1.0")
+    check(sc["stats_max_abs_diff"] <= STATS_GATE and sc["stats_argmax_agreement"] == 1.0,
+          f"bench stats shards <= {STATS_GATE} / 1.0")
+    check(kc["encoder_min_cos"] >= ENCODER_MIN_COS, f"bench encoder min cosine >= {ENCODER_MIN_COS}")
+    check(sc["engine_mask_agreement"] == sc["batched_engine_mask_agreement"] == 1.0,
+          "bench sharded engines' masks equal the plain engines'")
+    check(0.0 < inf["mfu"] <= 1.0 and inf["value"] > 0.0, "bench mfu in (0, 1]")
+    check(all(v is not None and math.isfinite(v) for v in inf["phase_ms"].values()), "bench phase_ms measured")
+    check(inf["launches"]["affinity_bank"] > 0 and inf["launches"]["bottleneck"] > 0,
+          f"bench launched both kernels ({inf['launches']})")
+    train = bench_line("bench_train", BENCH_TRAIN_ENV)
+    log(f"bench_train: {train['value']:.4f} steps/s, {train['step_tflop']:.4f} TFLOP a step, mfu {train['mfu']:.6f}")
+    check(0.0 < train["mfu"] <= 1.0, "bench_train mfu in (0, 1]")
+    return {"bench": inf, "bench_train": train}
+
+
 def main() -> int:
-    if not (ROOT / "semi_supervised_vos_tpu_torch" / "__init__.py").is_file():
+    if not (PACKAGE / "__init__.py").is_file():
         log("FAILED: the semi_supervised_vos_tpu_torch package is not beside this script")
         return 2
     import torch
@@ -2733,7 +2677,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("FAILED: no CUDA device")
         return 1
-    sys.path.insert(0, str(ROOT))
     os.environ["SVOS_ZOO"] = "0"  # the train CLI's ImageNet lookup: random init, no download
     from semi_supervised_vos_tpu_torch.ops import _build
 
@@ -2806,6 +2749,8 @@ def main() -> int:
         p15 = native_and_mesh_phase(torch, dev, work, videos)
         stage("phase 16: wide float32 frames, the flagship step, bottleneck_stack")
         p16 = wide_and_surface_phase(torch, dev, rng, work, net, f32)
+    stage("phase 17: the benches (python -m semi_supervised_vos_tpu_torch.bench, .bench_train)")
+    p17 = bench_phase(torch)
     stage("summary")
     log(f"main path on {card}: {fps:.3f} fps end to end (CLI, decode and PNG writes included), "
         f"{engine_ms:.4f} ms/frame on the device (decoded frames), J&F {jf:.6f}")
@@ -2855,6 +2800,10 @@ def main() -> int:
         f"{wc['size'][0]}x{wc['size'][1]} CLI {wc['frames'] / wc['seconds']:.3f} fps, card vs CPU masks "
         f"{wc['agreement']:.6f}; entry step {es['entry']['ms']:.4f} ms, agreement {es['entry']['agreement']:.6f}; "
         "bottleneck_stack " + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in es["stack"].items()))
+
+    b, bt = p17["bench"], p17["bench_train"]
+    log(f"benches on {card} (reduced protocol): bench {b['value']:.3f} frames/s batched (B = 8), mfu {b['mfu']:.6f}; "
+        f"bench_train {bt['value']:.4f} steps/s, mfu {bt['mfu']:.6f}")
 
     # launches: the main path's (kernel 3: its own path's; the float32
     # variants: phase 14d's); launches_by_path: each strategy's run; prob_*:
@@ -2921,6 +2870,7 @@ def main() -> int:
     print(json.dumps({"float32": f32}))
     print(json.dumps({"native_and_mesh": p15}))
     print(json.dumps({"wide_and_surface": p16}))
+    print(json.dumps({"benches": p17}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -94,8 +94,8 @@ def bank_cases(torch, cs, dev, rng) -> dict:
     plain = cs.time_ms(lambda: aff.affinity_from_bank_plain(feats, labels, tgt, slots, **kw), reps=5)
     _, inv_sigma2, _ = aff.slot_table(slots, valid, dense, 8.0, 21.0, True)
     nbytes = k * 6420 * (c * 4 + 24 * 2) + 6420 * c * 4 + 24 * 6420 * 4
-    b3, by3 = cs.affinity_bound(torch, dev, k, 6420, 107, c, 22, inv_sigma2, nbytes, cs.PEAK_TF32_FLOPS, 3)
-    bf, byf = cs.affinity_bound(torch, dev, k, 6420, 107, c, 22, inv_sigma2, nbytes, cs.PEAK_F32_FLOPS)
+    b3, by3 = cs.affinity_bound(dev, k, 6420, 107, c, 22, inv_sigma2, nbytes, cs.PEAK_TF32_FLOPS, 3)
+    bf, byf = cs.affinity_bound(dev, k, 6420, 107, c, 22, inv_sigma2, nbytes, cs.PEAK_F32_FLOPS)
     res = dict(ms=[float(t[0]), float(t[5])], prob_ms=[float(t[1]), float(t[4])],
                library_ms=[float(t[2]), float(t[3])], plain_ms=float(plain), bound_3xtf32_ms=b3, bound_ffma_ms=bf,
                worst=worst, cases=out)

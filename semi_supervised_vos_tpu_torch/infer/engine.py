@@ -158,9 +158,16 @@ class PropagationEngine:
 
     @torch.no_grad()
     def encode(self, frames_u8) -> torch.Tensor:
-        """(N, H, W, 3) uint8 frames → (N, P, C) features in the engine dtype."""
-        # decoded frames are read-only arrays; torch wants writable memory
-        x = torch.from_numpy(np.require(frames_u8, np.uint8, ['C', 'W'])).to(self.device)
+        """(N, H, W, 3) uint8 frames, a numpy array or a tensor (one already
+        on the engine's device is read in place) → (N, P, C) features in
+        the engine dtype."""
+        if isinstance(frames_u8, torch.Tensor):
+            if frames_u8.dtype != torch.uint8:
+                raise TypeError(f"frames must be uint8, got {frames_u8.dtype}")
+            x = frames_u8.to(self.device)
+        else:
+            # decoded frames are read-only arrays; torch wants writable memory
+            x = torch.from_numpy(np.require(frames_u8, np.uint8, ['C', 'W'])).to(self.device)
         x = (x.float() / 255.0 - self.mean) / self.std
         if self.table is not None:
             from semi_supervised_vos_tpu_torch.models.infer_fast import fast_encode

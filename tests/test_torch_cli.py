@@ -18,10 +18,11 @@ from PIL import Image
 from semi_supervised_vos_tpu.models.convert import export_torch_checkpoint
 from semi_supervised_vos_tpu_torch.__main__ import cli
 from tests.helpers import make_davis_dataset
-from tests.test_torch_models import jax_variables
+from tests.test_torch_models import jax_variables, port_net
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "semi_supervised_vos_tpu"}
+# JAX, the JAX package, and the JAX package's benches at the root of the repo
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "semi_supervised_vos_tpu", "bench", "bench_train"}
 
 
 @pytest.fixture(scope="module")
@@ -110,6 +111,22 @@ def test_package_source_never_imports_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_encode_takes_a_tensor_as_a_numpy_batch():
+    """``PropagationEngine.encode`` gives the same features for a numpy
+    batch and for the same batch as a uint8 tensor (read in place on the
+    engine's device); another dtype is refused."""
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
+
+    _, variables = jax_variables("resnet18", 1)
+    engine = PropagationEngine(port_net("resnet18", variables), (40, 48), EngineConfig(), "cpu")
+    frames = np.random.default_rng(0).integers(0, 255, (3, 40, 48, 3), dtype=np.uint8)
+    want = engine.encode(frames)
+    assert want.shape == (3, engine.p, 256)
+    assert torch.equal(engine.encode(torch.as_tensor(frames)), want)
+    with pytest.raises(TypeError, match="uint8"):
+        engine.encode(torch.as_tensor(frames).float())
 
 
 def test_missing_card_is_an_error(davis_and_ckpt, tmp_path):
