@@ -2130,8 +2130,9 @@ def fast_encoder_off(torch, work: Path, n: int):
 
 def profiling_run(torch, work: Path):
     """14g: ``SVOS_PROFILE=1`` and ``SVOS_TRACE_DIR`` under float32 on the
-    strategies' clip: the phase report is logged, and the trace names both
-    float32 kernels."""
+    strategies' clip: the recorder's report is logged, the trace names both
+    float32 kernels and holds the drain's spans, and the card's idle
+    summary is logged."""
     import logging
 
     tree, trace_dir = work / "strategies", work / "trace"
@@ -2146,15 +2147,19 @@ def profiling_run(torch, work: Path):
     finally:
         logging.getLogger("svos_torch").removeHandler(handler)
     report = [r for r in records if r.startswith("phase timing |")]
+    idle = [r for r in records if r.startswith("device idle ")]
     traces = sorted(trace_dir.glob("*.json"))
     text = traces[0].read_text() if traces else ""
     kernels = {name: name in text for name in ("affinity_bank_f32_kernel", "bottleneck_f32_kernel")}
-    log(f"14g SVOS_PROFILE / SVOS_TRACE_DIR: {wall:.3f} s; report {report}; trace files "
+    log(f"14g SVOS_PROFILE / SVOS_TRACE_DIR: {wall:.3f} s; report {report}; {idle}; trace files "
         f"{[t.name for t in traces]} ({len(text) / 1e6:.1f} MB), kernels named {kernels}")
-    check(len(report) == 1 and "chunk_dispatch" in report[0] and "chunk_sync" in report[0],
-          "SVOS_PROFILE logs the chunk_dispatch / chunk_sync report")
+    check(len(report) == 1 and all(f"{name}: " in report[0] for name in (
+        "engine.step", "engine.upload", "engine.encode", "engine.propagate", "engine.write", "drain.job",
+        "upload.pageable_bytes")), "SVOS_PROFILE logs the recorder's spans and counters in one report")
     check(len(traces) == 1 and all(kernels.values()), "SVOS_TRACE_DIR writes one trace naming both float32 kernels")
-    return dict(report=report[0], trace_bytes=len(text), seconds=wall)
+    check('"svos.drain.job"' in text and len(idle) == 1,
+          "the trace holds the drain's spans and the card's idle gaps are logged")
+    return dict(report=report[0], idle=idle[0] if idle else None, trace_bytes=len(text), seconds=wall)
 
 
 def tf32_wgmma_in_sass() -> dict:

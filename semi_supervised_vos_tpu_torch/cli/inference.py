@@ -19,9 +19,19 @@ is virtual (the CPU named that many times), so there is no count to exceed.
 ``SVOS_INFER_DTYPE`` (``float32`` or ``bfloat16``; the JAX CLI's default:
 bf16 on the card, float32 on the CPU) sets the features' dtype: on the card
 float32 runs the float32 variants of both kernels. ``SVOS_FAST_ENCODER=0``
-encodes with the module instead of the BN-folded fast encoder (card only),
-``SVOS_PROFILE=1`` logs per-phase timing and ``SVOS_TRACE_DIR`` writes a
-``torch.profiler`` trace (``infer/strategies.py::run_streams``).
+encodes with the module instead of the BN-folded fast encoder (card only).
+
+``SVOS_PROFILE=1`` records the port's spans and counters over the run
+(``utils/profiling.py``: ``engine.step``, ``engine.upload``,
+``engine.encode``, ``engine.propagate``, ``engine.write``, ``engine.start``,
+``drain.queue``, ``drain.job``, ``drain.upsample``, ``cli.stack``,
+``png.write``; ``upload.calls``, ``upload.bytes``, ``upload.pageable_bytes``,
+``engine.frames``, ``lockstep.lane_steps``, ``lockstep.real_lane_steps``)
+and logs them once at the end as one ``phase timing | name: …s (nx, … ms
+avg)`` line. ``SVOS_TRACE_DIR=<dir>`` writes a ``torch.profiler`` Chrome
+trace of the run there, the mask drain's and PNG writers' spans included,
+and logs the card's idle share from the first ``engine.step`` on with its
+ten longest idle gaps, each named by the span the host was in.
 """
 
 from __future__ import annotations
@@ -92,13 +102,16 @@ def infer_dtype(dev: torch.device) -> torch.dtype:
 def inference_command(ref_num, data, resume, model, temperature, frame_range, sigma_1, sigma_2, save, device,
                       inference_strategy, additional_model, additional_model_type, probability, scale, fusion,
                       video_batch, bank_shards, dp_shards):
+    from semi_supervised_vos_tpu_torch.utils.profiling import profiled_run
+
     try:
-        inference_command_impl(
-            ref_num, data, resume, model, temperature, frame_range, sigma_1, sigma_2, save, device,
-            inference_strategy=inference_strategy, additional_resume=additional_model,
-            additional_model_type=additional_model_type, probability_propagation=probability, scale=scale,
-            reduction=fusion, video_batch=video_batch, bank_shards=bank_shards, dp_shards=dp_shards,
-        )
+        with profiled_run():
+            inference_command_impl(
+                ref_num, data, resume, model, temperature, frame_range, sigma_1, sigma_2, save, device,
+                inference_strategy=inference_strategy, additional_resume=additional_model,
+                additional_model_type=additional_model_type, probability_propagation=probability, scale=scale,
+                reduction=fusion, video_batch=video_batch, bank_shards=bank_shards, dp_shards=dp_shards,
+            )
     except (NotImplementedError, RuntimeError) as err:
         raise click.ClickException(str(err)) from err
 

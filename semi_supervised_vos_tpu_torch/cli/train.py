@@ -9,6 +9,10 @@ data-parallel degree ``n_devices / --tp``, channel sharding with ``--tp``
 > 1, both on a 2-D mesh (``parallel/train_mesh.py``, ``parallel/tp.py``).
 Checkpoints are reference-format ``.pth.tar`` files
 (``train/train_state.py``), gathered to the single-device layout.
+``SVOS_PROFILE=1`` and ``SVOS_TRACE_DIR`` act as for ``inference``: the
+train step's spans (``train.step``, ``train.forward``, ``train.loss``,
+``train.backward``, ``train.optimizer``, timed on the card too) in one
+``phase timing`` line at the end, a Chrome trace of the run.
 """
 
 from __future__ import annotations
@@ -62,10 +66,13 @@ LOSS_CHOICES = ["cross_entropy", "focal", "contrastive", "triplet"]
               help="Keep decoded frames in host RAM after the first epoch. Default: the SVOS_DECODE_CACHE env var.")
 def train_command(frame_num, training, validation, resume, save_model, epochs, bs, lr, loss, freeze, miner, margin,
                   loss_weight, max_triplets, early_stop, model_name, pretrained, device, bf16, tp, decode_cache):
+    from semi_supervised_vos_tpu_torch.utils.profiling import profiled_run
+
     try:
-        train_command_impl(frame_num, training, validation, resume, save_model, epochs, bs, lr, loss, freeze, miner,
-                           margin, loss_weight, max_triplets, early_stop, model_name, pretrained, device, bf16=bf16,
-                           tp=tp, decode_cache=decode_cache)
+        with profiled_run():
+            train_command_impl(frame_num, training, validation, resume, save_model, epochs, bs, lr, loss, freeze,
+                               miner, margin, loss_weight, max_triplets, early_stop, model_name, pretrained, device,
+                               bf16=bf16, tp=tp, decode_cache=decode_cache)
     except (NotImplementedError, RuntimeError, ValueError) as err:
         raise click.ClickException(str(err)) from err
 

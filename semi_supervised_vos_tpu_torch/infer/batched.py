@@ -64,7 +64,9 @@ from semi_supervised_vos_tpu_torch.utils.image import (
     save_prediction,
     save_predictions,
 )
+from semi_supervised_vos_tpu_torch.utils import profiling
 from semi_supervised_vos_tpu_torch.utils.logging import logger
+from semi_supervised_vos_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,10 +190,11 @@ class BatchedPropagationEngine(PropagationEngine):
     def start_videos(self, frames_u8: np.ndarray, labels_full: np.ndarray) -> BankState:
         """Frame 0 of every lane, (B, H, W, 3) frames and (B, H, W) labels: a
         fresh bank holding their features and downsampled one-hot labels."""
-        state = self.init_state()
-        label = torch.as_tensor(np.asarray(labels_full, np.int64), device=self.device)
-        small = nearest_resize(label, (self.hd, self.wd), hw_axes=(1, 2)).reshape(self.b, self.p)
-        self._write(state, 0, self.encode(frames_u8), index_to_onehot(small, self.d_pad, self.label_dtype))
+        with span("engine.start", new_id=True):
+            state = self.init_state()
+            label = torch.as_tensor(np.asarray(labels_full, np.int64), device=self.device)
+            small = nearest_resize(label, (self.hd, self.wd), hw_axes=(1, 2)).reshape(self.b, self.p)
+            self._write(state, 0, self.encode(frames_u8), index_to_onehot(small, self.d_pad, self.label_dtype))
         return state
 
     @torch.no_grad()
@@ -206,13 +209,15 @@ class BatchedPropagationEngine(PropagationEngine):
         the device, state). The full-resolution fusion runs one step at a
         time: a step's (B, H, W, D) float32 maps are the largest tensors it
         makes."""
-        feats = self._encode_chunk(frames_u8)
-        out = None
-        for i in range(feats.shape[0]):
-            masks = self._finalize(self._step(feats[i], state, start_idx + i))
-            if out is None:
-                out = masks.new_empty((feats.shape[0],) + tuple(masks.shape))
-            out[i] = masks
+        with span("engine.step", new_id=True):
+            feats = self._encode_chunk(frames_u8)
+            profiling.count("engine.frames", feats.shape[:-2].numel())
+            out = None
+            for i in range(feats.shape[0]):
+                masks = self._finalize(self._step(feats[i], state, start_idx + i))
+                if out is None:
+                    out = masks.new_empty((feats.shape[0],) + tuple(masks.shape))
+                out[i] = masks
         return out, state
 
     # step_chunk_small ((N, B, hd, wd) uint8 feature-resolution masks, for
@@ -385,7 +390,8 @@ def _run_group(chunk, lengths, row, start, step, emit, progress) -> None:
 
     def deliver(fetch, t0, n):
         arr = fetch()
-        return [writers.submit(emit, v, t0 + tt, arr[tt, i])
+        write = profiling.handoff(emit)
+        return [writers.submit(write, v, t0 + tt, arr[tt, i])
                 for tt in range(n) for i, v in enumerate(chunk) if t0 + tt < lengths[i]]
 
     rows = prefetch(row, t_max, depth=2 * HOST_THREADS, workers=HOST_THREADS)
@@ -399,6 +405,9 @@ def _run_group(chunk, lengths, row, start, step, emit, progress) -> None:
             n = min(chunk_n, t_max - t)
             batch = [next(rows) for _ in range(n)]
             fetch = step(batch + [batch[-1]] * (chunk_n - n), t, n)
+            if profiling.recording():  # useful over computed: the chunk's steps of each video
+                profiling.count("lockstep.lane_steps", chunk_n * len(chunk))
+                profiling.count("lockstep.real_lane_steps", sum(max(0, min(n, length - t)) for length in lengths))
             drain.submit(lambda fetch=fetch, t0=t, n=n: deliver(fetch, t0, n))
             if progress:
                 for _ in range(n):
@@ -411,6 +420,12 @@ def _run_group(chunk, lengths, row, start, step, emit, progress) -> None:
         drain.close()
         rows.close()
         writers.shutdown(wait=True)
+
+
+def _stack(arrays) -> np.ndarray:
+    """A chunk's rows stacked into one array (span ``cli.stack``)."""
+    with span("cli.stack"):
+        return np.stack(arrays)
 
 
 def _png_writer(palettes, save_dir):
@@ -459,9 +474,9 @@ def inference_batched(dataset, annotation_dir, save_dir, model, cfg, device, vid
         def step(batch, t, n):
             nonlocal state
             if lanes == 1:  # feature-resolution masks, upsampled on the host
-                masks, state = engine.step_chunk_small(np.stack(batch), state, t)
+                masks, state = engine.step_chunk_small(_stack(batch), state, t)
                 return lambda: nearest_resize_host(masks[:n].cpu().numpy(), hw, hw_axes=(2, 3))
-            masks, state = engine.step_chunk(np.stack(batch), state, t)
+            masks, state = engine.step_chunk(_stack(batch), state, t)
             return lambda: masks[:n].cpu().numpy()
 
         _run_group(chunk, lengths, row, start, step, _png_writer(palettes, save_dir), progress)
@@ -517,7 +532,7 @@ def inference_multimodel_batched(dataset, annotation_dir, save_dir, model, addit
 
         def step(batch, t, n):
             nonlocal st1, st2
-            frames = np.stack(batch)
+            frames = _stack(batch)
             s1, st1 = e1.step_chunk_scores(frames, st1, t)
             s2, st2 = e2.step_chunk_scores(frames, st2, t)
             masks = fuse(s1, s2, e1.hd, e1.wd)
@@ -579,7 +594,7 @@ def inference_2_scale_batched(dataset, annotation_dir, save_dir, model, cfg, dev
 
         def step(batch, t, n):
             nonlocal st1, st2
-            x1, x2 = np.stack([r[0] for r in batch]), np.stack([r[1] for r in batch])
+            x1, x2 = _stack([r[0] for r in batch]), _stack([r[1] for r in batch])
             if probability:
                 s1, st1 = e1.step_chunk_scores(x1, st1, t)
                 s2, st2 = e2.step_chunk_scores(x2, st2, t)
@@ -644,7 +659,7 @@ def inference_3_scale_batched(dataset, annotation_dir, save_dir, model, cfg, dev
 
             def step(batch, t, n):
                 nonlocal state
-                masks, state = engine.step_chunk_small(np.stack(batch), state, t)
+                masks, state = engine.step_chunk_small(_stack(batch), state, t)
                 return lambda: nearest_resize_host(masks[:n].cpu().numpy(), out_hw, hw_axes=(2, 3))
 
             # frame t of video v lands in collected[v][t - 1], in whatever order the writers run

@@ -16,7 +16,11 @@ spatial prior off. The sampling schedule runs on the host with Python ints;
 slots, validity and 1/σ² reach the affinity kernel through a small pinned
 table copied without a host wait, so no frame waits on a device→host copy.
 Masks (single stream) or raw scores (the multi-stream strategies) stay on
-the device until the chunk is done.
+the device until the chunk is done. While the recorder records
+(``utils/profiling.py``), a chunk is span ``engine.step`` around
+``engine.upload`` (the frames' move to the device, counted in
+``upload.*``), ``engine.encode`` and each frame's ``engine.propagate`` and
+``engine.write``; a video's first frame is ``engine.start``.
 
 Two paths, as in the JAX engine:
   * on CUDA: the BN-folded ``fast_encode`` with the fused bottleneck kernel,
@@ -55,6 +59,8 @@ from semi_supervised_vos_tpu_torch.core.spatial import spatial_weight
 from semi_supervised_vos_tpu_torch.models.resnet import out_spatial
 from semi_supervised_vos_tpu_torch.ops.onehot import index_to_onehot
 from semi_supervised_vos_tpu_torch.ops.resize import nearest_resize
+from semi_supervised_vos_tpu_torch.utils import profiling
+from semi_supervised_vos_tpu_torch.utils.profiling import span
 
 # ImageNet normalisation (reference ``src/utils/datasets.py:36-39``).
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -76,6 +82,13 @@ def grouped_map(fn, x, cap: int) -> torch.Tensor:
             out = y.new_empty((n,) + tuple(y.shape[1:]))
         out[i : i + y.shape[0]] = y
     return out
+
+
+def _count_upload(nbytes: int, pinned: bool) -> None:
+    profiling.count("upload.calls")
+    profiling.count("upload.bytes", nbytes)
+    if not pinned:
+        profiling.count("upload.pageable_bytes", nbytes)
 
 
 class BankState(NamedTuple):
@@ -156,18 +169,34 @@ class PropagationEngine:
         return (spatial_weight(hw, self.cfg.sigma_1, device=self.device),
                 spatial_weight(hw, self.cfg.sigma_2, device=self.device))
 
+    def _upload(self, frames_u8) -> torch.Tensor:
+        """(N, H, W, 3) uint8 frames, a numpy array or a tensor, as a tensor
+        on the engine's device (one already there is read in place); counts
+        the frames that come from host memory (``upload.*``)."""
+        if isinstance(frames_u8, torch.Tensor):
+            if frames_u8.dtype != torch.uint8:
+                raise TypeError(f"frames must be uint8, got {frames_u8.dtype}")
+            if profiling.recording() and frames_u8.device.type == "cpu":
+                _count_upload(frames_u8.nbytes, frames_u8.is_pinned())
+            return frames_u8.to(self.device)
+        # decoded frames are read-only arrays; torch wants writable memory
+        x = torch.from_numpy(np.require(frames_u8, np.uint8, ['C', 'W']))
+        if profiling.recording():
+            _count_upload(x.nbytes, False)
+        return x.to(self.device)
+
     @torch.no_grad()
     def encode(self, frames_u8) -> torch.Tensor:
         """(N, H, W, 3) uint8 frames, a numpy array or a tensor (one already
         on the engine's device is read in place) → (N, P, C) features in
         the engine dtype."""
-        if isinstance(frames_u8, torch.Tensor):
-            if frames_u8.dtype != torch.uint8:
-                raise TypeError(f"frames must be uint8, got {frames_u8.dtype}")
-            x = frames_u8.to(self.device)
-        else:
-            # decoded frames are read-only arrays; torch wants writable memory
-            x = torch.from_numpy(np.require(frames_u8, np.uint8, ['C', 'W'])).to(self.device)
+        with span("engine.upload"):
+            x = self._upload(frames_u8)
+        with span("engine.encode"):
+            return self._encode(x)
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) uint8 frames on the device → (N, P, C) features."""
         x = (x.float() / 255.0 - self.mean) / self.std
         if self.table is not None:
             from semi_supervised_vos_tpu_torch.models.infer_fast import fast_encode
@@ -221,12 +250,14 @@ class PropagationEngine:
         soft scores in probability mode, else the argmax one-hot. Returns the
         (num_classes, P) float32 scores. (The lockstep engine passes (B, P, C)
         lanes and gets (B, num_classes, P).)"""
-        pred = self._propagate(target, state, frame_idx)
-        if self.cfg.probability_propagation:
-            labels = torch.nn.functional.pad(pred.transpose(-1, -2), (0, self.d_pad - pred.shape[-2]))
-        else:
-            labels = index_to_onehot(torch.argmax(pred, dim=-2), self.d_pad, self.label_dtype)
-        self._write(state, frame_idx % self.cfg.capacity, target, labels)
+        with span("engine.propagate"):
+            pred = self._propagate(target, state, frame_idx)
+        with span("engine.write"):
+            if self.cfg.probability_propagation:
+                labels = torch.nn.functional.pad(pred.transpose(-1, -2), (0, self.d_pad - pred.shape[-2]))
+            else:
+                labels = index_to_onehot(torch.argmax(pred, dim=-2), self.d_pad, self.label_dtype)
+            self._write(state, frame_idx % self.cfg.capacity, target, labels)
         return pred
 
     def init_state(self) -> BankState:
@@ -240,11 +271,12 @@ class PropagationEngine:
     def start_video(self, frame_u8: np.ndarray, label_full: np.ndarray) -> BankState:
         """Frame 0: a fresh bank holding its features and the downsampled
         annotation."""
-        state = self.init_state()
-        feats = self.encode(frame_u8[None])[0]
-        label = torch.as_tensor(np.asarray(label_full, np.int64), device=self.device)
-        label_small = nearest_resize(label[:, :, None], (self.hd, self.wd)).reshape(self.p)
-        self._write(state, 0, feats, index_to_onehot(label_small, self.d_pad, self.label_dtype))
+        with span("engine.start", new_id=True):
+            state = self.init_state()
+            feats = self.encode(frame_u8[None])[0]
+            label = torch.as_tensor(np.asarray(label_full, np.int64), device=self.device)
+            label_small = nearest_resize(label[:, :, None], (self.hd, self.wd)).reshape(self.p)
+            self._write(state, 0, feats, index_to_onehot(label_small, self.d_pad, self.label_dtype))
         return state
 
     def _encode_chunk(self, frames_u8) -> torch.Tensor:
@@ -256,10 +288,12 @@ class PropagationEngine:
         """Frames ``start_idx .. start_idx + N - 1``: one batched encode, then
         sequential propagation with in-place bank writes. Returns
         ((N, hd, wd) uint8 feature-resolution masks on the device, state)."""
-        feats = self._encode_chunk(frames_u8)
-        masks = torch.empty(feats.shape[:-2] + (self.hd, self.wd), dtype=torch.uint8, device=self.device)
-        for i in range(feats.shape[0]):
-            masks[i] = torch.argmax(self._step(feats[i], state, start_idx + i), dim=-2).view(masks.shape[1:])
+        with span("engine.step", new_id=True):
+            feats = self._encode_chunk(frames_u8)
+            profiling.count("engine.frames", feats.shape[:-2].numel())
+            masks = torch.empty(feats.shape[:-2] + (self.hd, self.wd), dtype=torch.uint8, device=self.device)
+            for i in range(feats.shape[0]):
+                masks[i] = torch.argmax(self._step(feats[i], state, start_idx + i), dim=-2).view(masks.shape[1:])
         return masks, state
 
     @torch.no_grad()
@@ -267,6 +301,8 @@ class PropagationEngine:
         """Like :meth:`step_chunk_small`, but returns the raw feature-resolution
         scores ((N, num_classes, P) float32 on the device, state): the
         multi-stream strategies fuse them across streams."""
-        feats = self._encode_chunk(frames_u8)
-        scores = [self._step(feats[i], state, start_idx + i) for i in range(feats.shape[0])]
-        return torch.stack(scores), state
+        with span("engine.step", new_id=True):
+            feats = self._encode_chunk(frames_u8)
+            profiling.count("engine.frames", feats.shape[:-2].numel())
+            scores = torch.stack([self._step(feats[i], state, start_idx + i) for i in range(feats.shape[0])])
+        return scores, state

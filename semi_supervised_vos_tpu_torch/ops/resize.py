@@ -11,6 +11,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from semi_supervised_vos_tpu_torch.utils.profiling import span
+
 
 def _nearest_indices(out_size: int, in_size: int, device=None) -> torch.Tensor:
     o = torch.arange(out_size, device=device, dtype=torch.int64)
@@ -33,16 +35,17 @@ def nearest_resize_host(x, out_hw: Tuple[int, int], hw_axes: Tuple[int, int] = (
     (the same integer index mapping). A uint8 array with H and W as its
     last two axes (every mask drain's case) goes through the native
     upsampler (``ops/native_upsample.py``) while it is on: the same bytes."""
-    x = np.asarray(x)
-    h_ax = hw_axes[0] % x.ndim
-    w_ax = hw_axes[1] % x.ndim
-    if (h_ax, w_ax) == (x.ndim - 2, x.ndim - 1) and x.dtype == np.uint8:
-        from semi_supervised_vos_tpu_torch.ops.native_upsample import nearest_u8
+    with span("drain.upsample"):
+        x = np.asarray(x)
+        h_ax = hw_axes[0] % x.ndim
+        w_ax = hw_axes[1] % x.ndim
+        if (h_ax, w_ax) == (x.ndim - 2, x.ndim - 1) and x.dtype == np.uint8:
+            from semi_supervised_vos_tpu_torch.ops.native_upsample import nearest_u8
 
-        out = nearest_u8(x, out_hw)
-        if out is not None:
-            return out
-    rows = np.minimum(np.arange(out_hw[0]) * x.shape[h_ax] // out_hw[0], x.shape[h_ax] - 1)
-    cols = np.minimum(np.arange(out_hw[1]) * x.shape[w_ax] // out_hw[1], x.shape[w_ax] - 1)
-    x = np.take(x, rows, axis=h_ax)
-    return np.take(x, cols, axis=w_ax)
+            out = nearest_u8(x, out_hw)
+            if out is not None:
+                return out
+        rows = np.minimum(np.arange(out_hw[0]) * x.shape[h_ax] // out_hw[0], x.shape[h_ax] - 1)
+        cols = np.minimum(np.arange(out_hw[1]) * x.shape[w_ax] // out_hw[1], x.shape[w_ax] - 1)
+        x = np.take(x, rows, axis=h_ax)
+        return np.take(x, cols, axis=w_ax)

@@ -14,6 +14,11 @@ ends.
 Precision: float32 parameters, gradients and loss products; convolutions
 at PyTorch's defaults; ``bf16=True`` runs the forward under
 ``torch.autocast(bfloat16)``.
+
+A train step records span ``train.step`` around ``train.forward`` (the
+network to features), ``train.loss`` (the head, its miners included),
+``train.backward`` and ``train.optimizer`` (the update, then the gradients
+dropped), each timed on the card too (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from semi_supervised_vos_tpu_torch.train.miners import (
     TemporalMiner,
     host_geometry,
 )
+from semi_supervised_vos_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,10 +190,12 @@ def make_loss_fn(spec: LossSpec, num_classes: int = DEFAULT.num_classes, bf16: b
     head = make_head_fn(spec, num_classes)
 
     def loss_fn(net, imgs, anns, centroids, generator, geometry=None):
-        with torch.autocast(imgs.device.type, dtype=torch.bfloat16, enabled=bf16):
-            out = net(normalized_frames(imgs))
-        feats = features_from_embeddings(out, *imgs.shape[:2])
-        return head(feats, anns, centroids, generator, geometry)
+        with span("train.forward", device=imgs.device):
+            with torch.autocast(imgs.device.type, dtype=torch.bfloat16, enabled=bf16):
+                out = net(normalized_frames(imgs))
+            feats = features_from_embeddings(out, *imgs.shape[:2])
+        with span("train.loss", device=imgs.device):
+            return head(feats, anns, centroids, generator, geometry)
 
     return loss_fn
 
@@ -197,15 +205,19 @@ def make_train_step(net, spec: LossSpec, optimizer, num_classes: int = DEFAULT.n
     optimizer step of ``net`` in train mode. Frozen parameters
     (``requires_grad`` off) get no gradient, so SGD leaves them, their weight
     decay and their momentum alone, as the JAX package's masked update
-    does."""
+    does. The step drops the gradients once it has taken them: none is
+    left on the parameters between steps."""
     loss_fn = make_loss_fn(spec, num_classes, bf16)
 
     def train_step(imgs, anns, centroids, generator, geometry=None):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(net, imgs, anns, centroids, generator, geometry)
-        if loss.requires_grad:  # a frozen resnet18 has nothing to train
-            loss.backward()
-        optimizer.step()
+        with span("train.step", device=imgs.device, new_id=True):
+            loss = loss_fn(net, imgs, anns, centroids, generator, geometry)
+            with span("train.backward", device=imgs.device):
+                if loss.requires_grad:  # a frozen resnet18 has nothing to train
+                    loss.backward()
+            with span("train.optimizer", device=imgs.device):
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
         return loss.detach()
 
     return train_step

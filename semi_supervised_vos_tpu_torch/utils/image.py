@@ -15,6 +15,7 @@ import numpy as np
 from PIL import Image
 
 from semi_supervised_vos_tpu_torch.utils.logging import logger
+from semi_supervised_vos_tpu_torch.utils.profiling import span
 
 
 def load_annotation(path) -> Tuple[np.ndarray, int, Optional[list]]:
@@ -37,15 +38,16 @@ def copy_first_annotation(annotation_path, save_dir, video_name) -> None:
 def save_prediction(
     prediction: np.ndarray, palette, save_path, save_name: str, video_name: str
 ) -> None:
-    """Write one prediction frame as a P-mode PNG."""
-    img = Image.fromarray(prediction.astype(np.int32))
-    img = img.convert("L")
-    if palette is not None:
-        img.putpalette(palette)
-    img = img.convert("P")
-    video_path = Path(save_path) / video_name
-    video_path.mkdir(parents=True, exist_ok=True)
-    img.save((video_path / (save_name + ".png")).absolute())
+    """Write one prediction frame as a P-mode PNG (span ``png.write``)."""
+    with span("png.write"):
+        img = Image.fromarray(prediction.astype(np.int32))
+        img = img.convert("L")
+        if palette is not None:
+            img.putpalette(palette)
+        img = img.convert("P")
+        video_path = Path(save_path) / video_name
+        video_path.mkdir(parents=True, exist_ok=True)
+        img.save((video_path / (save_name + ".png")).absolute())
 
 
 def save_predictions(

@@ -18,6 +18,7 @@ The float32 CUDA kernels against their plain versions are in
 
 import json
 import logging
+import re
 
 import click
 import jax.numpy as jnp
@@ -283,8 +284,8 @@ def test_fast_encoder_off_changes_nothing_on_the_cpu(davis_and_ckpt, port_defaul
 
 
 def test_profile_logs_the_chunk_phases(davis_and_ckpt, port_default, tmp_path, monkeypatch):  # noqa: F811
-    """``SVOS_PROFILE=1``: one ``phase timing`` report of the single-stream
-    chunks (the JAX format), and the same PNGs."""
+    """``SVOS_PROFILE=1``: one ``phase timing`` report of the recorder's
+    spans and counters (the JAX format), and the same PNGs."""
     root, ckpt = davis_and_ckpt
     records = []
     handler = logging.Handler()
@@ -297,7 +298,10 @@ def test_profile_logs_the_chunk_phases(davis_and_ckpt, port_default, tmp_path, m
     report = [r for r in records if r.startswith("phase timing | ")]
     assert len(report) == 1, records
     # two videos of 4 propagated frames: one chunk each
-    assert "chunk_dispatch: " in report[0] and "chunk_sync: " in report[0] and "(2x, " in report[0]
+    assert re.search(r"\| engine\.step: [0-9.]+s \(2x, ", report[0]), report[0]
+    for name in ("engine.start", "engine.upload", "engine.encode", "engine.propagate", "engine.write",
+                 "drain.job", "png.write", "upload.pageable_bytes"):
+        assert f"{name}: " in report[0], name
     assert all((got[k] == port_default[k]).all() for k in got)
 
 

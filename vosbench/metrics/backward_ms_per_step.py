@@ -1,0 +1,10 @@
+"""Device ms a train step spends in its backward: the program's span
+``train.backward`` inside ``train.step``, timed on the card by CUDA
+events, per ``train.step`` of the traced slice; None on the CPU, where
+nothing is timed on a card."""
+
+from vosbench.spans import device_ms_per_step
+
+
+def read(_slice):
+    return device_ms_per_step("train.backward")
