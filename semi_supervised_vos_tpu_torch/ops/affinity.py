@@ -42,6 +42,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from semi_supervised_vos_tpu_torch.utils import profiling
+
 NEG_INF = -1e30
 MAX_WIDTH = 256  # feature widths the kernels take (the bf16 kernel's target rows live in registers)
 LABEL_GROUP = 64  # label columns per sweep of the bf16 kernel
@@ -68,6 +70,16 @@ def slot_table(
         inv_sigma2 = np.zeros(k)
     bias = np.where(valid, 0.0, NEG_INF)
     return slots, inv_sigma2.astype(np.float32), bias.astype(np.float32)
+
+
+def column_tables(inv_sigma2: np.ndarray) -> np.ndarray:
+    """(K,) int32: the column table (0 or 1) each slot's prior reads in the
+    bf16 sweep, one table per distinct nonzero inv_sigma2 (0 where the
+    prior is off). :func:`slot_table` makes at most two such values."""
+    values = np.unique(inv_sigma2[inv_sigma2 != 0])
+    if values.size > 2:
+        raise ValueError(f"at most two distinct nonzero inv_sigma2, got {values.tolist()}")
+    return np.searchsorted(values, inv_sigma2).clip(0, 1).astype(np.int32)
 
 
 def affinity_from_bank_plain(
@@ -170,9 +182,11 @@ def _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, valid, dense, *, fe
         raise ValueError("no slots: the kernel takes K >= 1")
     if slots.min() < 0 or slots.max() >= cap:
         raise ValueError(f"slots {slots.tolist()} outside the bank's {cap} slots")
-    # (3, K) int32 in device memory: slots, then the float32 bits of 1/sigma^2
-    # and of the slot biases; copied from pinned memory without a host wait
-    table = np.stack([slots, inv_sigma2.view(np.int32), bias.view(np.int32)])
+    # (4, K) int32 in device memory: slots, then the float32 bits of 1/sigma^2
+    # and of the slot biases, and each slot's column table (the float32
+    # kernel reads the first three rows); copied from pinned memory without a
+    # host wait
+    table = np.stack([slots, inv_sigma2.view(np.int32), bias.view(np.int32), column_tables(inv_sigma2)])
     table = torch.from_numpy(table).pin_memory().to(dev, non_blocking=True)
 
     name = "affinity_bank_f32" if f32 else "affinity_bank"
@@ -197,6 +211,8 @@ def _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, valid, dense, *, fe
             )
             if err != 0:
                 raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+            profiling.count("affinity.sweeps")
+            profiling.count("affinity.splits", splits)
     # both sweeps write float32 partials: one combine kernel
     return _launch_combine(_library(), pm, pl, pacc, return_stats)
 
