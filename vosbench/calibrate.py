@@ -32,8 +32,8 @@ from vosbench.harness import Context
 def infer_seed(cell: dict, seed: int, seconds: float) -> dict:
     root = bench_run.HERE.parent
     driver = bench_run.load_module(root / "vosbench" / "drivers" / f"{cell['traffic']['driver']}.py", "cal_driver")
-    ctx = Context(workload=cell["workload"]["name"], config=cell["config"], traffic=cell["traffic"],
-                  seed=seed, seconds=seconds, trace=False, device=torch.device("cuda:0"),
+    ctx = Context(workload=cell["workload"]["name"], config=cell["config"], network=cell["network"],
+                  traffic=cell["traffic"], seed=seed, seconds=seconds, trace=False, device=torch.device("cuda:0"),
                   t_process=time.perf_counter(), control=True)
     out = driver.run(ctx)
     return {"program": out.readings, "control": out.control, "frames_per_s": out.metrics["frames_per_s"][0]}
@@ -42,15 +42,14 @@ def infer_seed(cell: dict, seed: int, seconds: float) -> dict:
 def train_seed(cell: dict, seed: int) -> dict:
     from vosbench import videos
     from vosbench.drivers import train_step as ts
-    from vosbench.weights import train_state_dict
 
-    cfg, tr, dev = cell["config"], cell["traffic"], torch.device("cuda:0")
+    cfg, network, tr, dev = cell["config"], cell["network"], cell["traffic"], torch.device("cuda:0")
     ring = videos.make_train_ring(tr, seed, dev)
-    ref = ts.reference_run(cfg["model"], seed, ring, dev)
+    ref = ts.reference_run(cfg, network, seed, ring, dev)
     out = {}
     half = [(imgs[: len(imgs) // 2], anns[: len(anns) // 2]) for imgs, anns in ring]
     for name, bf16, batches in (("program", False, ring), ("control", True, ring), ("half_batch", False, half)):
-        step, net, opt = ts.program(cfg, train_state_dict(cfg["model"], seed, dev), dev, bf16=bf16)
+        step, net, opt = ts.program(cfg, network, network.train_weights(cfg, seed, dev), dev, bf16=bf16)
         readings = ts.compare(ts.first_steps(step, net, opt, batches), ref, cfg["train"]["weight_decay"])
         out[name] = {k: v for k, v in readings.items() if k not in ("_losses", "_ref_losses", "_left_out")}
         del step, net, opt

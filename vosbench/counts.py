@@ -2,15 +2,16 @@
 computed from shapes and the sampling schedule alone, and the published
 peaks of one NVIDIA H100 SXM.
 
-Nothing here reads the program: the convolutions are counted from the
-architecture tables below (the reference's stride-8 ResNets), the affinity
-op from the memory-bank schedule of :mod:`vosbench.reference.schedule`. A
-kernel that replaces another is charged the same work.
+Nothing here reads the program: the affinity op is counted from the
+memory-bank schedule of :mod:`vosbench.reference.schedule`, the encoder by
+each network family's module (``vosbench/networks/<family>.py``) from the
+configuration's architecture. A kernel that replaces another is charged
+the same work.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
 
 import numpy as np
 
@@ -23,57 +24,6 @@ PEAK_BYTES = 3.35e12
 PEAK_EXPS = 16 * 132 * 1980e6
 # a pair whose Gaussian prior is below exp(-36) skips its label product
 PRIOR_CUTOFF = 36.0
-
-# (blocks per stage, stage widths) of the bottleneck ResNets; stage strides
-# (1, 2, 1, 1): overall stride 8
-ARCH = {
-    "resnet50": ((3, 4, 6, 3), (64, 128, 256, 256)),
-    "facebook": ((3, 4, 6, 3), (64, 128, 256, 512)),
-}
-STAGE_STRIDES = (1, 2, 1, 1)
-EXPANSION = 4
-
-
-def conv_out(n: int, k: int, s: int) -> int:
-    return (n + 2 * (k // 2) - k) // s + 1
-
-
-def feature_hw(h: int, w: int) -> Tuple[int, int]:
-    """Stride-8 grid of an (h, w) frame: conv1 (7, stride 2), the max-pool
-    (3, stride 2), layer2's strided 3x3."""
-    return tuple(conv_out(conv_out(conv_out(n, 7, 2), 3, 2), 3, 2) for n in (h, w))
-
-
-def vosnet_convs(arch: str, h: int, w: int) -> List[Tuple[str, int, int, int, int, int]]:
-    """Every convolution of one VOSNet forward of an (h, w) frame, in
-    order: (name, cin, cout, k, out_h, out_w)."""
-    layers, planes = ARCH[arch]
-    oh, ow = conv_out(h, 7, 2), conv_out(w, 7, 2)
-    convs = [("stem", 3, 64, 7, oh, ow)]
-    oh, ow = conv_out(oh, 3, 2), conv_out(ow, 3, 2)
-    inplanes = 64
-    for stage, (width, blocks, stride) in enumerate(zip(planes, layers, STAGE_STRIDES), start=1):
-        for b in range(blocks):
-            s = stride if b == 0 else 1
-            name = f"layer{stage}_{b}"
-            convs.append((f"{name}/conv1", inplanes, width, 1, oh, ow))
-            bh, bw = conv_out(oh, 3, s), conv_out(ow, 3, s)
-            convs.append((f"{name}/conv2", width, width, 3, bh, bw))
-            convs.append((f"{name}/conv3", width, width * EXPANSION, 1, bh, bw))
-            if b == 0 and (s != 1 or inplanes != width * EXPANSION):
-                convs.append((f"{name}/downsample", inplanes, width * EXPANSION, 1, bh, bw))
-            oh, ow, inplanes = bh, bw, width * EXPANSION
-    if arch == "facebook":
-        convs.append(("head0", inplanes, 1024, 1, oh, ow))
-        inplanes = 1024
-    convs.append(("head", inplanes, 256, 1, oh, ow))
-    return convs
-
-
-def conv_flops(arch: str, h: int, w: int) -> float:
-    """Multiply-adds x 2 of every convolution of one (h, w) frame."""
-    return float(sum(2.0 * oh * ow * cin * cout * k * k for _, cin, cout, k, oh, ow in vosnet_convs(arch, h, w)))
-
 
 def affinity_work(k: int, p: int, wd: int, c: int, d: int, inv_sigma2: Sequence[float]) -> Tuple[float, float, float]:
     """One propagation of a P-pixel frame over K slots, the work its data
@@ -123,20 +73,6 @@ def affinity_call_bound(k_valid: int, lanes: int, p: int, wd: int, c: int, d: in
     return bound_s([(lanes * (sim + lab), PEAK_BF16_FLOPS)], nbytes, lanes * exps)
 
 
-def bottleneck_call(n: int, h: int, w: int, c: int, c4: int, elem_bytes: int = 2) -> Tuple[float, float]:
-    """(operations, bytes) of one fused bottleneck block over (n, h, w, c)
-    activations: its three convolutions, the input and output once, the
-    weights once."""
-    flops = 2.0 * n * h * w * (c * c4 + 9 * c4 * c4 + c4 * c)
-    nbytes = 2.0 * n * h * w * c * elem_bytes + (c * c4 + 9 * c4 * c4 + c4 * c) * elem_bytes
-    return flops, nbytes
-
-
-def bottleneck_call_bound(n: int, h: int, w: int, c: int, c4: int) -> float:
-    flops, nbytes = bottleneck_call(n, h, w, c, c4)
-    return bound_s([(flops, PEAK_BF16_FLOPS)], nbytes)
-
-
 def propagation_flops(t: int, p: int, wd: int, c: int, d: int, ref_num: int, frame_range: int,
                       sigma_1: float, sigma_2: float, cache: Dict = None) -> float:
     """Tensor operations of the affinity op at frame ``t`` of a video: its
@@ -154,11 +90,11 @@ def propagation_flops(t: int, p: int, wd: int, c: int, d: int, ref_num: int, fra
     return sim + lab
 
 
-def train_step_flops(arch: str, bs: int, frames: int, crop: int, c: int = 256, d: int = 22) -> float:
+def train_step_flops(forward_flops: float, p: int, bs: int, frames: int, c: int = 256, d: int = 22) -> float:
     """Operations of one cross-entropy train step: the forward's
-    convolutions over bs x frames crops and the loss's two products
-    (2·B·R·P²·C and 2·B·R·P²·D, R = frames − 1 references), all three times
-    (a backward is two products of the forward's size)."""
-    hd, wd = feature_hw(crop, crop)
-    p, r = hd * wd, frames - 1
-    return 3.0 * (bs * frames * conv_flops(arch, crop, crop) + 2.0 * bs * r * p * p * (c + d))
+    ``forward_flops`` over bs x frames crops (the network family's count) and
+    the loss's two products over a P-cell feature grid (2·B·R·P²·C and
+    2·B·R·P²·D, R = frames − 1 references), all three times (a backward is
+    two products of the forward's size)."""
+    r = frames - 1
+    return 3.0 * (forward_flops + 2.0 * bs * r * p * p * (c + d))

@@ -34,7 +34,6 @@ import torch
 from vosbench import counts, videos
 from vosbench.harness import Context, Outcome
 from vosbench.reference.judge import MaskJudge
-from vosbench.weights import inference_state_dict
 
 
 class _Chunk:
@@ -57,17 +56,13 @@ def _plan(lengths: List[int], chunk: int):
     return out
 
 
-def program(cfg: dict, tr: dict, sd, device):
+def program(cfg: dict, network, tr: dict, sd, device):
     """The system under test: the VOS network loaded with ``sd`` and its
     engine, as the inference CLI builds them."""
     from semi_supervised_vos_tpu_torch.infer.batched import BatchedPropagationEngine
     from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, PropagationEngine
-    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
 
-    with torch.device("meta"):
-        net = VOSNet(cfg["model"])
-    net = net.to_empty(device=device)
-    net.load_state_dict(sd)
+    net = network.program_net(cfg, sd, device)
     ecfg = EngineConfig(ref_num=cfg["ref_num"], frame_range=cfg["frame_range"], temperature=cfg["temperature"],
                         sigma_1=cfg["sigma_1"], sigma_2=cfg["sigma_2"], num_classes=cfg["num_classes"],
                         feature_dim=cfg["feature_dim"], compute_dtype=getattr(torch, cfg["inference_dtype"]))
@@ -77,18 +72,17 @@ def program(cfg: dict, tr: dict, sd, device):
     return BatchedPropagationEngine(net, hw, b, ecfg, device)
 
 
-def _wrap(tracer) -> None:
-    """Ranges and call records around the program's layers (traced run)."""
+def _wrap(tracer, network) -> None:
+    """Ranges and call records around the program's layers (traced run):
+    the engine's encode, the encoder's own (the family module's ``wrap``),
+    the affinity op."""
     from semi_supervised_vos_tpu_torch.infer.engine import PropagationEngine
-    from semi_supervised_vos_tpu_torch.models import infer_fast
     from semi_supervised_vos_tpu_torch.ops import affinity
 
     tracer.wrap(PropagationEngine, "encode", "encode", lambda a, k: {"images": int(a[1].shape[0])})
-    tracer.claim("bottleneck_kernel<", ("bottleneck", "encode", "dispatch"))
+    network.wrap(tracer)
     for name in ("affinity_bank_kernel<", "affinity_combine_kernel"):
         tracer.claim(name, ("affinity", "dispatch"))
-    tracer.wrap(infer_fast, "bottleneck_block", "bottleneck",
-                lambda a, k: {"shape": tuple(a[0].shape), "c4": int(a[1].shape[1])})
     tracer.wrap(affinity, "affinity_from_bank_batched", "affinity", lambda a, k: {
         "lanes": int(a[0].shape[1]), "p": int(a[0].shape[2]), "c": int(a[0].shape[3]), "d_pad": int(a[1].shape[-1]),
         "valid": np.asarray(k["valid"], bool), "dense": np.asarray(k["dense"], bool), "hw": tuple(k["feature_hw"]),
@@ -99,12 +93,12 @@ def run(ctx: Context) -> Outcome:
     from semi_supervised_vos_tpu_torch.infer.drain import MaskDrain
     from semi_supervised_vos_tpu_torch.ops.resize import nearest_resize_host
 
-    cfg, tr, dev, tracer = ctx.config, ctx.traffic, ctx.device, ctx.tracer
+    cfg, network, tr, dev, tracer = ctx.config, ctx.network, ctx.traffic, ctx.device, ctx.tracer
     on_card = torch.device(dev).type == "cuda"
     hw, b, chunk, in_flight = tuple(tr["hw"]), tr["video_batch"], tr["chunk"], tr["in_flight"]
     lockstep = b > 1
     axes = (2, 3) if lockstep else (1, 2)
-    hd, wd = counts.feature_hw(*hw)
+    hd, wd = network.feature_hw(cfg, *hw)
 
     # inputs and weights from the seed
     pool = videos.make_pool(tr, ctx.seed, dev)
@@ -113,17 +107,17 @@ def run(ctx: Context) -> Outcome:
     groups = [pool[i:i + b] for i in range(0, len(pool), b)]
     ctx.mark("pool made")
     calib = torch.as_tensor(np.stack([v.frames[0] for v in pool[:4]]), device=dev)
-    sd = inference_state_dict(cfg["model"], ctx.seed, calib, dev)
+    sd = network.inference_weights(cfg, ctx.seed, calib, dev)
     del calib
     ctx.mark("weights made")
     if on_card:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
 
-    engine = program(cfg, tr, sd, dev)
+    engine = program(cfg, network, tr, sd, dev)
     ctx.mark("engine built")
     drain = MaskDrain()
-    _wrap(tracer)
+    _wrap(tracer, network)
 
     def batch_of(group, t, n):
         if not lockstep:
@@ -185,7 +179,7 @@ def run(ctx: Context) -> Outcome:
 
     # the window
     flops_cache: Dict = {}
-    frame_flops = counts.conv_flops(cfg["model"], *hw)
+    frame_flops = network.frame_flops(cfg, *hw)
     done: List[_Chunk] = []
     pending: deque = deque()
     slice_at, slice_end = ctx.slice_bounds()
@@ -247,7 +241,7 @@ def run(ctx: Context) -> Outcome:
     if on_card:
         torch.cuda.empty_cache()
 
-    judge = MaskJudge(sd, cfg, hw, (hd, wd), dev, control=ctx.control)
+    judge = MaskJudge(sd, cfg, network, hw, (hd, wd), dev, control=ctx.control)
     judge.judge_features(bank_frames, bank_feats)
     _judge(judge, done, groups, tr, ctx.seed)
     readings = MaskJudge.summary(judge.readings)

@@ -22,25 +22,20 @@ import torch
 from vosbench import counts, videos
 from vosbench.harness import Context, Outcome
 from vosbench.reference.judge import loss_gap, moving_leaves, norm_gaps, relative_error
+from vosbench.reference.layers import float32_exact
 from vosbench.reference.train import run_steps
-from vosbench.reference.vosnet import float32_exact
-from vosbench.weights import parameter_keys, train_state_dict
 
 FIRST_STEPS = 3
 
 
-def program(cfg: dict, sd, device, bf16: bool):
+def program(cfg: dict, network, sd, device, bf16: bool):
     """The system under test: (step(imgs, anns) -> loss, the network, its
     optimizer), as the train CLI builds them."""
-    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
     from semi_supervised_vos_tpu_torch.ops.onehot import davis_centroids
     from semi_supervised_vos_tpu_torch.train.loop import LossSpec, make_train_step
     from semi_supervised_vos_tpu_torch.train.train_state import make_optimizer
 
-    with torch.device("meta"):
-        net = VOSNet(cfg["model"])
-    net = net.to_empty(device=device)
-    net.load_state_dict(sd)
+    net = network.program_net(cfg, sd, device)
     if torch.device(device).type == "cuda":
         net = net.to(memory_format=torch.channels_last)
     net.train()
@@ -66,15 +61,15 @@ def first_steps(step, net, opt, ring):
     return losses, grad1, params
 
 
-def reference_run(arch: str, seed: int, ring, device):
+def reference_run(cfg: dict, network, seed: int, ring, device):
     """The plain reference over the first steps from the same weights:
     (losses, first gradients as the optimizer takes them, raw first
     gradients, the leaves before, the leaves after)."""
-    sd = train_state_dict(arch, seed, device)
-    leaves = {k: sd[k] for k in parameter_keys(sd)}
+    sd = network.train_weights(cfg, seed, device)
+    leaves = {k: sd[k] for k in network.parameter_keys(sd)}
     start = {k: v.clone() for k, v in leaves.items()}
     with float32_exact():
-        losses, grad1, raw = run_steps(leaves, arch, list(ring[:FIRST_STEPS]))
+        losses, grad1, raw = run_steps(leaves, network, cfg, list(ring[:FIRST_STEPS]))
     return losses, grad1, raw, start, leaves
 
 
@@ -99,15 +94,15 @@ def compare(program_out, ref, weight_decay: float) -> dict:
 
 
 def run(ctx: Context) -> Outcome:
-    cfg, tr, dev, tracer = ctx.config, ctx.traffic, ctx.device, ctx.tracer
+    cfg, network, tr, dev, tracer = ctx.config, ctx.network, ctx.traffic, ctx.device, ctx.tracer
     on_card = torch.device(dev).type == "cuda"
     ring = videos.make_train_ring(tr, ctx.seed, dev)
     ctx.mark("batches made")
-    sd = train_state_dict(cfg["model"], ctx.seed, dev)
+    sd = network.train_weights(cfg, ctx.seed, dev)
     if on_card:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    step, net, opt = program(cfg, sd, dev, bf16=cfg["train"]["bf16"])
+    step, net, opt = program(cfg, network, sd, dev, bf16=cfg["train"]["bf16"])
     del sd
     ctx.mark("step built")
     out = first_steps(step, net, opt, ring)
@@ -149,11 +144,12 @@ def run(ctx: Context) -> Outcome:
     del step, net, opt, prev, loss
     if on_card:
         torch.cuda.empty_cache()
-    readings = compare(out, reference_run(cfg["model"], ctx.seed, ring, dev), cfg["train"]["weight_decay"])
+    readings = compare(out, reference_run(cfg, network, ctx.seed, ring, dev), cfg["train"]["weight_decay"])
     rate = len(losses) / window
     if trace_slice is not None:
-        flops = counts.train_step_flops(cfg["model"], tr["bs"], tr["frames"], tr["crop"], cfg["feature_dim"],
-                                        cfg["num_classes"])
+        hd, wd = network.feature_hw(cfg, tr["crop"], tr["crop"])
+        flops = counts.train_step_flops(network.train_forward_flops(cfg, tr["bs"] * tr["frames"], tr["crop"]),
+                                        hd * wd, tr["bs"], tr["frames"], cfg["feature_dim"], cfg["num_classes"])
         # the traced run's rate: the steps done before the slice opened
         pre = [t for t in fetched if t <= tracer.t_start]
         trace_slice.extra.update({"useful_flops_per_s": len(pre) / (pre[-1] - t0) * flops})

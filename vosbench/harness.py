@@ -23,6 +23,7 @@ from vosbench.trace import Slice, Tracer
 class Context:
     workload: str
     config: dict  # the configuration file
+    network: object  # its family module, ``vosbench/networks/<network>.py``
     traffic: dict  # the traffic file
     seed: int
     seconds: float

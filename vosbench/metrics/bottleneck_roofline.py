@@ -1,9 +1,10 @@
 """Share of its roofline the fused bottleneck block reaches: the least
 time of each call's work (its three convolutions at the bf16 rate, or its
-activations and weights once at the memory rate, ``vosbench/counts.py``)
-over the device time of the kernels launched inside the calls."""
+activations and weights once at the memory rate,
+``vosbench/networks/resnet.py``) over the device time of the kernels
+launched inside the calls."""
 
-from vosbench.counts import bottleneck_call_bound
+from vosbench.networks.resnet import bottleneck_call_bound
 
 
 def read(s):

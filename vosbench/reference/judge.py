@@ -40,16 +40,17 @@ import torch
 
 from vosbench.reference.propagation import downsample_labels, nearest_index, preimage_index, scores
 from vosbench.reference.schedule import sample_frames
-from vosbench.reference.vosnet import float32_exact, forward, normalize
+from vosbench.reference.layers import float32_exact, normalize
 
 
-def encode(sd, arch: str, frames_u8: np.ndarray, device, round_to=None, batch: int = 4) -> torch.Tensor:
-    """(N, H, W, 3) uint8 host frames → (N, P, 256) float32 features."""
+def encode(sd, network, cfg: dict, frames_u8: np.ndarray, device, round_to=None, batch: int = 4) -> torch.Tensor:
+    """(N, H, W, 3) uint8 host frames → (N, P, C) float32 features, by the
+    plain reference of the family module ``network``."""
     out = []
     with torch.no_grad(), float32_exact():
         for i in range(0, len(frames_u8), batch):
             x = normalize(torch.as_tensor(np.ascontiguousarray(frames_u8[i:i + batch]), device=device))
-            f = forward(sd, arch, x, round_to=round_to)
+            f = network.forward(sd, cfg, x, round_to=round_to)
             out.append(f.permute(0, 2, 3, 1).reshape(f.shape[0], -1, f.shape[1]))
     return torch.cat(out)
 
@@ -74,8 +75,9 @@ def gap_map(ref_scores: torch.Tensor, classes_full: torch.Tensor, hw_small: Tupl
 class MaskJudge:
     """Judges sampled frames of finished videos; accumulates the readings."""
 
-    def __init__(self, sd, cfg: dict, hw: Tuple[int, int], hw_small: Tuple[int, int], device, control: bool = False):
-        self.sd, self.cfg, self.hw, self.hw_small, self.device = sd, cfg, hw, hw_small, device
+    def __init__(self, sd, cfg: dict, network, hw: Tuple[int, int], hw_small: Tuple[int, int], device,
+                 control: bool = False):
+        self.sd, self.cfg, self.network, self.hw, self.hw_small, self.device = sd, cfg, network, hw, hw_small, device
         self.control = control
         self.readings: Dict[str, List[float]] = {"gap": [], "miss": [], "pixels": []}
         self.control_readings: Dict[str, List[float]] = {"gap": [], "miss": [], "pixels": []}
@@ -95,8 +97,9 @@ class MaskJudge:
         plans = {t: sample_frames(t, cfg["frame_range"], cfg["ref_num"]) for t in targets}
         needed = sorted({t for t in targets} | {int(r) for idx, valid, _ in plans.values() for r in idx[valid]})
         pos = {f: i for i, f in enumerate(needed)}
-        feats = encode(self.sd, cfg["model"], frames_u8[needed], self.device)
-        ctl = encode(self.sd, cfg["model"], frames_u8[needed], self.device, torch.float8_e4m3fn) if self.control else None
+        feats = encode(self.sd, self.network, cfg, frames_u8[needed], self.device)
+        ctl = (encode(self.sd, self.network, cfg, frames_u8[needed], self.device, torch.float8_e4m3fn)
+               if self.control else None)
         for t in targets:
             idx, valid, dense = plans[t]
             refs = [int(r) for r in idx[valid]]
@@ -119,10 +122,10 @@ class MaskJudge:
 
     def judge_features(self, frames_u8: np.ndarray, program_feats: torch.Tensor) -> None:
         """(N, H, W, 3) frames and the program's (N, P, C) features of them."""
-        ref = encode(self.sd, self.cfg["model"], frames_u8, self.device)
+        ref = encode(self.sd, self.network, self.cfg, frames_u8, self.device)
         self.readings["feat"] = [relative_error(program_feats, ref)]
         if self.control:
-            ctl = encode(self.sd, self.cfg["model"], frames_u8, self.device, torch.float8_e4m3fn)
+            ctl = encode(self.sd, self.network, self.cfg, frames_u8, self.device, torch.float8_e4m3fn)
             self.control_readings["feat"] = [relative_error(ctl, ref)]
 
     @staticmethod

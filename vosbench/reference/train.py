@@ -1,12 +1,12 @@
 """The cross-entropy training step in plain float32 PyTorch (reference code
 ``src/train.py:155-216`` and ``src/model/loss.py:13-66``): the VOS network
-over every frame of B clips in training mode (BatchNorm on the batch's
-statistics), the annotations brought to the stride-8 grid by nearest
-resize and quantised to the nearest of the 22 palette colours, the last
-frame's labels propagated from the T − 1 earlier frames by a softmax over
-all their pixels, the mean negative log-likelihood, and one step of SGD
-with Nesterov momentum 0.9 and weight decay 3e-4 added to the gradient
-(``src/train.py:75-81``).
+(its family module's plain ``forward``) over every frame of B clips in
+training mode (BatchNorm on the batch's statistics), the annotations
+brought to the feature grid by nearest resize and quantised to the
+nearest of the 22 palette colours, the last frame's labels propagated
+from the T − 1 earlier frames by a softmax over all their pixels, the mean
+negative log-likelihood, and one step of SGD with Nesterov momentum 0.9 and
+weight decay 3e-4 added to the gradient (``src/train.py:75-81``).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from vosbench.reference.vosnet import forward, normalize, train_bn
+from vosbench.reference.layers import normalize, train_bn
 
 EPS = 1e-14
 LR, MOMENTUM, WEIGHT_DECAY = 0.02, 0.9, 3e-4
@@ -55,11 +55,11 @@ def annotation_classes(anns: torch.Tensor, hd: int, wd: int) -> torch.Tensor:
     return torch.argmin(((small[..., None, :] - c) ** 2).sum(-1), dim=-1)
 
 
-def loss_fn(params: Dict[str, torch.Tensor], arch: str, imgs: torch.Tensor, anns: torch.Tensor,
+def loss_fn(params: Dict[str, torch.Tensor], network, cfg: dict, imgs: torch.Tensor, anns: torch.Tensor,
             num_classes: int = 22, round_to=None) -> torch.Tensor:
     b, t = imgs.shape[:2]
     x = normalize(imgs.reshape(-1, *imgs.shape[2:]))
-    feats = forward(params, arch, x, train_bn(params), round_to).float().permute(0, 2, 3, 1)
+    feats = network.forward(params, cfg, x, train_bn(params), round_to).float().permute(0, 2, 3, 1)
     hd, wd, c = feats.shape[1:]
     feats = feats.reshape(b, t, hd * wd, c)
     cls = annotation_classes(anns, hd, wd).reshape(b, t, hd * wd)
@@ -84,7 +84,7 @@ def sgd_step(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor], bu
             p.sub_(LR * (d_p + MOMENTUM * bufs[k]))
 
 
-def run_steps(params: Dict[str, torch.Tensor], arch: str, batches: List[Tuple[torch.Tensor, torch.Tensor]],
+def run_steps(params: Dict[str, torch.Tensor], network, cfg: dict, batches: List[Tuple[torch.Tensor, torch.Tensor]],
               round_to=None) -> Tuple[List[float], Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Train ``params`` (float32 leaves, changed in place) over ``batches``:
     → (each step's loss, the first step's gradient as the optimizer takes
@@ -93,7 +93,7 @@ def run_steps(params: Dict[str, torch.Tensor], arch: str, batches: List[Tuple[to
     losses, first, raw = [], None, None
     for step, (imgs, anns) in enumerate(batches):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        loss = loss_fn(leaves, arch, imgs, anns, round_to=round_to)
+        loss = loss_fn(leaves, network, cfg, imgs, anns, round_to=round_to)
         grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
         losses.append(float(loss.detach()))
         sgd_step(params, grads, bufs)

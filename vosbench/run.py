@@ -3,12 +3,14 @@
     python3 -m vosbench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout holding ``BENCHMARK.json``. The cell is looked
-up by name there; its configuration file, its traffic file
-(``vosbench/traffic/<traffic>.json``, whose ``driver`` key names a module of
-``vosbench/drivers/``), its limits (``vosbench/limits/<workload>.json``) and
-each per-layer metric's reader (``vosbench/metrics/<metric>.py``) are found
-by name, so a new cell, configuration, traffic mix or metric is new files
-and entries.
+up by name there; its configuration file (whose ``network`` key names a
+family module of ``vosbench/networks/``, which holds all that depends on
+the network), its traffic file (``vosbench/traffic/<traffic>.json``, whose
+``driver`` key names a module of ``vosbench/drivers/``), its limits
+(``vosbench/limits/<workload>.json``) and each per-layer metric's reader
+(``vosbench/metrics/<metric>.py``) are found by name, so a new cell,
+configuration, network family, traffic mix or metric is new files and
+entries.
 
 The run makes its inputs and weights from the seed, sets the program up and
 warms every shape (``setup_s``), measures for ``--seconds``, judges the
@@ -31,6 +33,8 @@ import os  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 from typing import Dict, List, Optional  # noqa: E402
+
+from vosbench import networks  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "semi_supervised_vos_tpu")
@@ -57,8 +61,9 @@ def load_module(path: Path, name: str):
 
 def resolve(root: Path, workload: str) -> dict:
     """The cell named ``workload`` of ``root/BENCHMARK.json`` with every
-    file it names: workload, config, traffic, limits, end_to_end and
-    per_layer (the metric entries that this cell reports)."""
+    file it names: workload, config, network (the configuration's family
+    module, its ``check`` passed), traffic, limits, end_to_end and per_layer
+    (the metric entries that this cell reports)."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
@@ -70,10 +75,12 @@ def resolve(root: Path, workload: str) -> dict:
         return workload in metric.get("workloads", [workload])
 
     limits_path = root / "vosbench" / "limits" / f"{workload}.json"
+    config = json.loads((root / config_entry["file"]).read_text())
     return {
         "bench": bench,
         "workload": cell,
-        "config": json.loads((root / config_entry["file"]).read_text()),
+        "config": config,
+        "network": networks.of(config, root),
         "traffic": json.loads((root / "vosbench" / "traffic" / f"{cell['traffic']}.json").read_text()),
         "limits": json.loads(limits_path.read_text()) if limits_path.exists() else {},
         "end_to_end": [m for m in bench["end_to_end"] if reports(m)],
@@ -137,9 +144,9 @@ def main(argv=None, root: Optional[Path] = None, device: Optional[str] = None) -
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = p.parse_args(argv)
     root = Path(root) if root is not None else HERE.parent
-    cell = resolve(root, args.workload)
     for key, value in cache_dirs(root).items():
         os.environ.setdefault(key, value)
+    cell = resolve(root, args.workload)
 
     import torch
 
@@ -157,7 +164,7 @@ def main(argv=None, root: Optional[Path] = None, device: Optional[str] = None) -
 
     driver = load_module(root / "vosbench" / "drivers" / f"{cell['traffic']['driver']}.py",
                          f"vosbench_driver_{cell['traffic']['driver']}")
-    ctx = Context(workload=args.workload, config=cell["config"], traffic=cell["traffic"],
+    ctx = Context(workload=args.workload, config=cell["config"], network=cell["network"], traffic=cell["traffic"],
                   seed=args.seed, seconds=args.seconds, trace=bool(args.trace), device=torch.device(device),
                   t_process=T_PROCESS)
     outcome = driver.run(ctx)

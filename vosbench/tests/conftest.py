@@ -14,6 +14,18 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+# the benchmark's configuration files, by name
+CONFIGS = sorted(p.stem for p in (ROOT / "vosbench" / "configs").glob("*.json"))
+
+
+def config_of(name: str):
+    """(the configuration file ``name``, its network family's module)."""
+    from vosbench import networks
+
+    cfg = json.loads((ROOT / "vosbench" / "configs" / f"{name}.json").read_text())
+    return cfg, networks.of(cfg)
+
+
 # tiny cells: each stands for the named cell, with its limits
 TINY = {
     "t-single": ("resnet50", "r50-480p-single", {"driver": "infer_stream", "hw": [64, 96], "video_batch": 1,

@@ -1,21 +1,25 @@
 """The frozen counts equal the port's own counting
-(``utils/benchmarking.py``, ``bench_train.py``) at 480p."""
+(``utils/benchmarking.py``, ``bench_train.py``) at 480p, for each
+configuration file through its network family's module."""
 
 import pytest
 import torch
 
+from conftest import CONFIGS, config_of
 from vosbench import counts
 
 
-@pytest.mark.parametrize("arch", ["resnet50", "facebook"])
-def test_conv_flops_equal_the_ports_hooks(arch):
+@pytest.mark.parametrize("config", CONFIGS)
+def test_conv_flops_equal_the_ports_hooks(config):
     from semi_supervised_vos_tpu_torch.utils import benchmarking as bm
 
-    assert counts.conv_flops(arch, 480, 854) == bm.vosnet_frame_flops(arch, (480, 854))
+    cfg, network = config_of(config)
+    assert network.frame_flops(cfg, 480, 854) == bm.vosnet_frame_flops(cfg["model"], (480, 854))
 
 
 def test_resnet50_480p_is_166_86_gflop():
-    assert round(counts.conv_flops("resnet50", 480, 854) / 1e9, 2) == 166.86
+    cfg, network = config_of("resnet50")
+    assert round(network.frame_flops(cfg, 480, 854) / 1e9, 2) == 166.86
 
 
 @pytest.mark.parametrize("t", [10, 16, 50, 64])
@@ -35,14 +39,19 @@ def test_affinity_count_equals_the_ports(t):
 def test_train_step_count_equals_bench_train():
     from semi_supervised_vos_tpu_torch.bench_train import step_flops
 
-    assert counts.train_step_flops("resnet50", 16, 10, 256) == step_flops("resnet50", 16, 10, 256)
+    cfg, network = config_of("resnet50")
+    hd, wd = network.feature_hw(cfg, 256, 256)
+    forward = network.train_forward_flops(cfg, 16 * 10, 256)
+    assert counts.train_step_flops(forward, hd * wd, 16, 10) == step_flops("resnet50", 16, 10, 256)
 
 
-def test_feature_grid_equals_the_ports():
+@pytest.mark.parametrize("config", CONFIGS)
+def test_feature_grid_equals_the_ports(config):
     from semi_supervised_vos_tpu_torch.models.resnet import out_spatial
 
+    cfg, network = config_of(config)
     for hw in [(480, 854), (1080, 1920), (64, 96), (255, 257)]:
-        assert counts.feature_hw(*hw) == out_spatial(*hw)
+        assert network.feature_hw(cfg, *hw) == out_spatial(*hw)
 
 
 def test_large_grid_near_count_matches_the_dense_count():

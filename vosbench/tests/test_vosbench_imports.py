@@ -35,6 +35,25 @@ def test_reference_imports_nothing_of_the_port():
     assert not found
 
 
+def test_network_families_import_the_port_only_to_build_and_wrap_it():
+    """A family module's plain reference (``forward``) and weights stand
+    apart from the port: only ``program_net`` and ``wrap`` import it, inside
+    the function."""
+    files = sorted((BENCH / "networks").glob("*.py"))
+    assert any(f.stem != "__init__" for f in files)
+    found = set()
+    for f in files:
+        tree = ast.parse(f.read_text())
+        allowed = {id(n) for fn in tree.body if isinstance(fn, ast.FunctionDef) and fn.name in ("program_net", "wrap")
+                   for n in ast.walk(fn)}
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            if any(n.split(".", 1)[0] == PORT for n in names) and id(node) not in allowed:
+                found.add((f.name, node.lineno))
+    assert not found
+
+
 def test_top_level_comparison_is_whole():
     from vosbench.run import FORBIDDEN, forbidden_modules
 

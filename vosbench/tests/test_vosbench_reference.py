@@ -1,31 +1,25 @@
 """The plain reference agrees with the port's CPU paths at a tiny size:
-the network, the propagation, the schedule and the train step."""
+the network of each configuration file (its family module's ``forward``
+against the port's module), the propagation, the schedule and the train
+step."""
 
 import numpy as np
 import pytest
 import torch
 
-from vosbench.reference import propagation, schedule, train, vosnet
-from vosbench.weights import make_state_dict, train_state_dict
+from conftest import CONFIGS, config_of
+from vosbench.reference import layers, propagation, schedule, train
 
 
-def port_net(arch, sd):
-    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
-
-    net = VOSNet(arch)
-    net.load_state_dict(sd)
-    return net.eval()
-
-
-@pytest.mark.parametrize("arch", ["resnet50", "facebook"])
-def test_network_equals_the_ports_module(arch):
+@pytest.mark.parametrize("config", CONFIGS)
+def test_network_equals_the_ports_module(config):
+    cfg, network = config_of(config)
     torch.manual_seed(0)
     frames = torch.randint(0, 255, (2, 64, 80, 3), dtype=torch.uint8)
-    sd = make_state_dict(arch, 5, "cpu")
-    vosnet.calibrate_bn(sd, arch, vosnet.normalize(frames))
+    sd = network.inference_weights(cfg, 5, frames, "cpu")
     with torch.no_grad():
-        ref = vosnet.forward(sd, arch, vosnet.normalize(frames))
-        got = port_net(arch, sd)(vosnet.normalize(frames))
+        ref = network.forward(sd, cfg, layers.normalize(frames))
+        got = network.program_net(cfg, sd, "cpu").eval()(layers.normalize(frames))
     assert torch.allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
@@ -64,25 +58,24 @@ def test_preimage_reads_back_each_cell():
 
 
 def test_train_steps_equal_the_ports():
-    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
     from semi_supervised_vos_tpu_torch.ops.onehot import davis_centroids
     from semi_supervised_vos_tpu_torch.train.loop import LossSpec, make_train_step
     from semi_supervised_vos_tpu_torch.train.train_state import make_optimizer
 
     from vosbench import videos
 
+    cfg, network = config_of("resnet50")
     tr = {"bs": 2, "frames": 4, "crop": 64, "ring": 2, "objects": 2}
     ring = videos.make_train_ring(tr, 9, "cpu")
-    sd = train_state_dict("resnet50", 9, "cpu")
-    net = VOSNet("resnet50")
-    net.load_state_dict(sd)
+    sd = network.train_weights(cfg, 9, "cpu")
+    net = network.program_net(cfg, sd, "cpu")
     net.train()
     opt = make_optimizer(net.parameters())
     step = make_train_step(net, LossSpec(), opt)
     cent = torch.as_tensor(davis_centroids(), dtype=torch.float32)
     port_losses = [float(step(*b, cent, torch.Generator().manual_seed(1))) for b in ring]
     leaves = {k: v.clone() for k, v in sd.items() if k in dict(net.named_parameters())}
-    losses, _, _ = train.run_steps(leaves, "resnet50", ring)
+    losses, _, _ = train.run_steps(leaves, network, cfg, ring)
     assert np.allclose(port_losses, losses, rtol=1e-4)
     for k, p in net.named_parameters():
         assert torch.allclose(p.detach(), leaves[k], rtol=1e-4, atol=1e-6), k
