@@ -4,8 +4,12 @@
 ``--device`` takes ``cuda`` (the default) or ``cpu``; ``cuda`` without a
 card raises. All seven strategies run, in label and probability mode, one
 video at a time or, with ``--video-batch`` > 1, that many videos in
-lockstep (``infer/batched.py``), with any of the four models (also as
-multimodel's ``--additional-model-type``).
+lockstep (``infer/batched.py``), with any of the four ResNets (also as
+multimodel's ``--additional-model-type``) or ``dino_vitb8``, DINO's ViT-B/8
+(``models/vit.py``: 768-wide features, ``--resume`` a DINO checkpoint or
+one this port saved, ``--temperature`` 10 by default, DINO's 1 / 0.1;
+float32 features on the card are refused, the 3xTF32 bank kernel stopping
+at 256 channels).
 
 Two multi-device axes, as in the JAX CLI, composable under
 ``--video-batch``: ``--bank-shards`` shards each stream's bank pixel rows
@@ -25,8 +29,12 @@ encodes with the module instead of the BN-folded fast encoder (card only).
 (``utils/profiling.py``: ``engine.step``, ``engine.upload``,
 ``engine.encode``, ``engine.propagate``, ``engine.write``, ``engine.start``,
 ``drain.queue``, ``drain.job``, ``drain.upsample``, ``cli.stack``,
-``png.write``; ``upload.calls``, ``upload.bytes``, ``upload.pageable_bytes``,
-``engine.frames``, ``lockstep.lane_steps``, ``lockstep.real_lane_steps``)
+``png.write``, ``data.decode``, and the ViT's ``vit.embed``,
+``vit.attention``, ``vit.mlp``; ``upload.calls``, ``upload.bytes``,
+``upload.pageable_bytes``, ``engine.frames``, ``lockstep.lane_steps``,
+``lockstep.real_lane_steps``, ``data.frames``, ``vit.frames``,
+``vit.tokens``, ``affinity.sweeps``, ``affinity.splits``,
+``affinity.wide_sweeps``)
 and logs them once at the end as one ``phase timing | name: …s (nx, … ms
 avg)`` line. ``SVOS_TRACE_DIR=<dir>`` writes a ``torch.profiler`` Chrome
 trace of the run there, the mask drain's and PNG writers' spans included,
@@ -46,6 +54,8 @@ from semi_supervised_vos_tpu_torch.utils.logging import logger
 
 STRATEGIES = ["single", "hor-flip", "vert-flip", "2-scale", "multimodel", "hor-2-scale", "3-scale"]
 INFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the temperature each network's features were scored at, where it is not 1
+DEFAULT_TEMPERATURE = {"dino_vitb8": 10.0}
 
 
 def infer_dtype(dev: torch.device) -> torch.dtype:
@@ -64,9 +74,10 @@ def infer_dtype(dev: torch.device) -> torch.dtype:
               help="Path to inference dataset folder.")
 @click.option("--resume", "-r", type=click.Path(file_okay=True, dir_okay=True), required=True,
               help="Path to the trained checkpoint (.pth.tar file).")
-@click.option("--model", "-m", type=click.Choice(["resnet18", "resnet50", "resnet101", "facebook"]),
+@click.option("--model", "-m", type=click.Choice(["resnet18", "resnet50", "resnet101", "facebook", "dino_vitb8"]),
               default="resnet50", help="Network architecture.")
-@click.option("--temperature", "-t", type=float, default=1.0, help="Temperature parameter.")
+@click.option("--temperature", "-t", type=float, default=None,
+              help="Temperature parameter (default 1.0; 10.0 for dino_vitb8, the reciprocal of DINO's 0.1).")
 @click.option("--frame_range", type=int, default=40, help="Range of frames for inference.")
 @click.option("--sigma_1", type=float, default=8.0,
               help="Smaller sigma in the motion model for dense spatial weight.")
@@ -159,17 +170,23 @@ def inference_command_impl(ref_num, data, resume, model, temperature, frame_rang
     from semi_supervised_vos_tpu_torch.infer import strategies
     from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig
     from semi_supervised_vos_tpu_torch.models.convert import load_torch_checkpoint
-    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
+    from semi_supervised_vos_tpu_torch.models.vos_net import VIT_NAMES, VOSNet, build_vos_net
     from semi_supervised_vos_tpu_torch.utils.runtime import resolve_device
 
     dev = resolve_device(device)
     dtype = infer_dtype(dev)
+    if model in VIT_NAMES and dev.type == "cuda" and dtype == torch.float32:
+        raise click.UsageError(f"SVOS_INFER_DTYPE=float32 is not ported for {model}: its 768-wide features "
+                               f"exceed the float32 bank kernel's 256 channels; use bfloat16")
+    if temperature is None:
+        temperature = DEFAULT_TEMPERATURE.get(model, 1.0)
     mesh, mesh_dp = make_meshes(dev, video_batch, bank_shards, dp_shards)
-    net = load_torch_checkpoint(resume, VOSNet(model))
+    net = load_torch_checkpoint(resume, build_vos_net(model))
     dataset = InferenceDataset(str(Path(data) / "JPEGImages/480p"), inference_strategy=inference_strategy, scale=scale)
     cfg = EngineConfig(
         ref_num=ref_num, frame_range=frame_range, temperature=temperature,
         sigma_1=sigma_1, sigma_2=sigma_2, probability_propagation=probability_propagation, compute_dtype=dtype,
+        feature_dim=getattr(net, "feature_dim", 256),
     )
     progress = None
     if not disable:

@@ -24,6 +24,7 @@ from PIL import Image, ImageOps
 from semi_supervised_vos_tpu_torch.data import native_decode
 from semi_supervised_vos_tpu_torch.data.transforms import FixedColorJitter, get_crop_params, hflip, pil_crop, vflip
 from semi_supervised_vos_tpu_torch.utils.logging import logger
+from semi_supervised_vos_tpu_torch.utils.profiling import count, span
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp")
 
@@ -225,6 +226,14 @@ class InferenceDataset:
         return len(self.imgs)
 
     def __getitem__(self, index: int):
+        """Item ``index``, decoded in span ``data.decode`` (counter
+        ``data.frames``) while the recorder records."""
+        with span("data.decode"):
+            item = self._item(index)
+        count("data.frames")
+        return item
+
+    def _item(self, index: int):
         _, video_index = self.imgs[index]
         name = self.idx_to_class[video_index]
         strat = self.inference_strategy

@@ -254,6 +254,10 @@ BATCHABLE_STRATEGIES = tuple(_STRATEGY_LANES)
 #     at the cap).
 #   * facebook (layer4 keeps 2048 channels at stride 8), phase 12d: 0.3475
 #     GB a lane at 480p and 1.754 GB at 1080p; 171 and 33 lanes.
+#   * dino_vitb8 (a 768-wide bank, three times the ResNets'; the ViT's
+#     activations over 1 + P tokens a frame), ``prof_torch/vit_lanes.py``
+#     (one chunk at 24 and at 4 lanes, an encode call taking one step of
+#     each): 0.7252 GB a lane at 480p and 3.635 GB at 1080p; 82 and 16 lanes.
 #   * float32 features (SVOS_INFER_DTYPE=float32; the bank's features and
 #     the encoder's activations double), ``prof_torch/lane_caps.py``:
 #     resnet50 0.4727 GB a lane at 480p and 2.384 GB at 1080p, 125 and 24
@@ -264,7 +268,8 @@ _HBM_ANCHOR_P_SMALL = 6420
 _HBM_ANCHOR_P_LARGE = 32400
 _HBM_LANE_PX_SMALL = 232 * _HBM_ANCHOR_P_SMALL
 _HBM_LANE_PX_LARGE = 46 * _HBM_ANCHOR_P_LARGE
-_HBM_LANE_PX_ARCH = {"facebook": (171 * _HBM_ANCHOR_P_SMALL, 33 * _HBM_ANCHOR_P_LARGE)}
+_HBM_LANE_PX_ARCH = {"facebook": (171 * _HBM_ANCHOR_P_SMALL, 33 * _HBM_ANCHOR_P_LARGE),
+                     "dino_vitb8": (82 * _HBM_ANCHOR_P_SMALL, 16 * _HBM_ANCHOR_P_LARGE)}
 _HBM_LANE_PX_F32 = (125 * _HBM_ANCHOR_P_SMALL, 24 * _HBM_ANCHOR_P_LARGE)
 _HBM_LANE_PX_F32_ARCH = {"facebook": (104 * _HBM_ANCHOR_P_SMALL, 20 * _HBM_ANCHOR_P_LARGE)}
 

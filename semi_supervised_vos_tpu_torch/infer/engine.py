@@ -23,7 +23,8 @@ the device until the chunk is done. While the recorder records
 ``engine.write``; a video's first frame is ``engine.start``.
 
 Two paths, as in the JAX engine:
-  * on CUDA: the BN-folded ``fast_encode`` with the fused bottleneck kernel,
+  * on CUDA: the BN-folded ``fast_encode`` with the fused bottleneck kernel
+    (for DINO's ViT its own bf16 path, ``models/vit.py::DinoViT.encode``),
     the bank-direct affinity kernel, bf16 labels;
   * on the CPU: the unfolded module forward, the dense golden
     ``affinity_propagate`` and float32 labels — the JAX engine's CPU path.
@@ -57,6 +58,7 @@ from semi_supervised_vos_tpu_torch.core.propagation import affinity_propagate
 from semi_supervised_vos_tpu_torch.core.sampling import bank_capacity, sample_frames
 from semi_supervised_vos_tpu_torch.core.spatial import spatial_weight
 from semi_supervised_vos_tpu_torch.models.resnet import out_spatial
+from semi_supervised_vos_tpu_torch.models.vit import DinoViT
 from semi_supervised_vos_tpu_torch.ops.onehot import index_to_onehot
 from semi_supervised_vos_tpu_torch.ops.resize import nearest_resize
 from semi_supervised_vos_tpu_torch.utils import profiling
@@ -144,17 +146,28 @@ class PropagationEngine:
         self.dtype = compute_dtype(cfg, self.device)
         if self.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"compute_dtype must be torch.bfloat16 or torch.float32, got {self.dtype}")
-        # the folded table of fast_encode (None: the module encodes)
+        width = getattr(self.model, "feature_dim", cfg.feature_dim)
+        if width != cfg.feature_dim:
+            raise ValueError(f"the model's features are {width} wide, the engine's feature_dim {cfg.feature_dim}")
+        vit = isinstance(self.model, DinoViT)
+        # the folded table of fast_encode (None: the module encodes, or on
+        # the card a ViT its own bf16 path)
         self.table = None
+        self.vit_card = False
         if self.on_card:
             from semi_supervised_vos_tpu_torch.models.fold import fold_vosnet
 
+            if vit and self.dtype == torch.float32:
+                raise ValueError(f"float32 features are not ported for {self.model.model}: its {width}-wide bank "
+                                 f"exceeds the float32 bank kernel's 256 channels; use bfloat16")
             self.label_dtype = torch.bfloat16
             self.d_pad = -(-cfg.num_classes // 8) * 8
-            if table is None and os.environ.get("SVOS_FAST_ENCODER", "1") != "0":
+            fast = os.environ.get("SVOS_FAST_ENCODER", "1") != "0"
+            if table is None and fast and not vit:
                 with torch.no_grad():
                     table = fold_vosnet(self.model, self.dtype)
             self.table = table
+            self.vit_card = vit and fast
         else:
             self.label_dtype = torch.float32
             self.d_pad = cfg.num_classes
@@ -202,6 +215,8 @@ class PropagationEngine:
             from semi_supervised_vos_tpu_torch.models.infer_fast import fast_encode
 
             feats = fast_encode(self.table, x, self.dtype, arch=self.model.model)
+        elif self.vit_card:
+            feats = self.model.encode(x, self.dtype)
         elif self.on_card:
             from semi_supervised_vos_tpu_torch.models.infer_fast import _full_float32
 

@@ -4,6 +4,9 @@
   ``state_dict``, reference ``src/train.py:146-151``, or a bare state dict)
   straight into the module; ``module.`` prefixes left by
   ``torch.nn.DataParallel`` are stripped (``src/utils/utils.py:88-94``).
+  A DINO checkpoint (``models/vit.py``; its ``teacher`` / ``student``
+  entry, ``backbone.`` prefixes, the ``head.*`` projection) loads into a
+  ``DinoViT`` through :func:`dino_state_dict`.
 * :func:`save_torch_checkpoint` writes the same format.
 * :func:`load_torchvision_backbone` initialises the backbone from a
   torchvision ImageNet ResNet checkpoint, dropping ``layer4.*`` and ``fc.*``
@@ -25,11 +28,12 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from semi_supervised_vos_tpu_torch.models.vos_net import VIT_NAMES
 from semi_supervised_vos_tpu_torch.utils.logging import logger
 
 _BN_FIELDS = {
@@ -53,11 +57,43 @@ def load_torch_checkpoint(path, net: torch.nn.Module) -> torch.nn.Module:
         sys.exit(-1)
     logger.info(f"=> loading checkpoint '{path}'")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if getattr(net, "model", None) in VIT_NAMES:
+        net.load_state_dict(dino_state_dict(ckpt, net))
+        logger.info(f"=> loaded checkpoint '{path}'")
+        return net
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
     net.load_state_dict(strip_module_prefix(ckpt))
     logger.info(f"=> loaded checkpoint '{path}'")
     return net
+
+
+def dino_state_dict(sd: Mapping, net: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """A state dict in DINO's checkpoint layout → :class:`~.vit.DinoViT`'s: the
+    ``teacher`` (else ``student``, else ``state_dict``) entry of a training
+    checkpoint, ``module.`` and ``backbone.`` prefixes stripped and the
+    ``head.*`` projection (not part of the backbone) dropped; with ``net``,
+    every key and shape is checked against it."""
+    for entry in ("teacher", "student", "state_dict", "model"):
+        if isinstance(sd, dict) and entry in sd and isinstance(sd[entry], dict):
+            sd = sd[entry]
+            break
+    out = {}
+    for k, v in sd.items():
+        for prefix in ("module.", "backbone."):
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+        if k.startswith("head."):
+            continue
+        out[k] = v
+    if net is not None:
+        ours = net.state_dict()
+        missing, extra = sorted(set(ours) - set(out)), sorted(set(out) - set(ours))
+        bad = [k for k in ours if k in out and tuple(out[k].shape) != tuple(ours[k].shape)]
+        if missing or extra or bad:
+            raise ValueError(f"not a {net.model} state dict: missing {missing[:4]}, unexpected {extra[:4]}, "
+                             f"shapes differ at {bad[:4]}")
+    return out
 
 
 def save_torch_checkpoint(net: torch.nn.Module, path) -> None:

@@ -9,6 +9,10 @@
     two 1x1 convs of ``adjust_dim`` (2048 → 1024 → 256, with no BN and no
     ReLU between them) → BatchNorm ``bn256``.
 
+:func:`build_vos_net` also builds ``dino_vitb8``, DINO's ViT-B/8
+(``models/vit.py``), whose 768-wide patch tokens take the place of the
+embedding.
+
 ``backbone`` is an ``nn.Sequential`` of the ResNet's first eight children,
 so the state-dict keys are the reference's: ``backbone.0`` (conv1),
 ``backbone.1`` (bn1), ``backbone.4..7`` (layer1..4), ``adjust_dim``
@@ -23,7 +27,19 @@ from torch import nn
 
 from semi_supervised_vos_tpu_torch.models.resnet import BatchNorm2d, resnet
 
-MODEL_NAMES = ("resnet18", "resnet50", "resnet101", "facebook")
+RESNET_NAMES = ("resnet18", "resnet50", "resnet101", "facebook")
+VIT_NAMES = ("dino_vitb8",)
+MODEL_NAMES = RESNET_NAMES + VIT_NAMES
+
+
+def build_vos_net(model: str = "resnet50") -> nn.Module:
+    """The network ``model`` names: a :class:`VOSNet`, or for ``dino_vitb8``
+    the ViT (``models/vit.py::DinoViT``, 768-wide features)."""
+    if model in VIT_NAMES:
+        from semi_supervised_vos_tpu_torch.models.vit import DinoViT
+
+        return DinoViT(model)
+    return VOSNet(model)
 
 
 class VOSNet(nn.Module):
@@ -31,8 +47,9 @@ class VOSNet(nn.Module):
 
     def __init__(self, model: str = "resnet50"):
         super().__init__()
-        if model not in MODEL_NAMES:
-            raise NotImplementedError(f"model {model!r} is not ported; one of {MODEL_NAMES}")
+        if model not in RESNET_NAMES:
+            raise NotImplementedError(f"model {model!r} is not a stride-8 ResNet; one of {RESNET_NAMES} "
+                                      f"(build_vos_net builds every one of {MODEL_NAMES})")
         self.model = model
         self.backbone = nn.Sequential(*resnet(model).children_for_vos())
         if model == "facebook":

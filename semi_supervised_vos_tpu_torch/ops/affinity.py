@@ -12,7 +12,10 @@ statistics (:func:`combine_partials`, plain version
 ``csrc/affinity_bank_f32.cu`` instead (a float32-accurate similarity on
 the tf32 tensor cores, 3xTF32; the same split plan and combine kernel),
 counted apart in
-``affinity_from_bank_batched.launches_f32``.
+``affinity_from_bank_batched.launches_f32``. Features wider than 256
+channels (up to 768, a multiple of 64: DINO's ViT-B/8) run the bf16
+kernel's wide sweep, counted in ``affinity.wide_sweeps`` besides
+``affinity.sweeps`` while the recorder records.
 
 * ``affinity_from_bank_batched`` (and its ``affinity_from_bank`` /
   ``affinity_from_bank_stats`` wrappers): the engine's op, reading the ring
@@ -45,8 +48,10 @@ import torch
 from semi_supervised_vos_tpu_torch.utils import profiling
 
 NEG_INF = -1e30
-MAX_WIDTH = 256  # feature widths the kernels take (the bf16 kernel's target rows live in registers)
+NARROW_WIDTH = 256  # feature widths of the bf16 sweep whose target rows live in registers, and of the float32 one
+MAX_WIDTH = 768  # of the bf16 kernel's wide sweep (target rows in shared memory; a multiple of 64)
 LABEL_GROUP = 64  # label columns per sweep of the bf16 kernel
+LABEL_GROUP_WIDE = 24  # of its wide sweep
 LABEL_GROUP_F32 = 24  # of the float32 kernel: one sweep at the 22-class budget
 
 
@@ -170,8 +175,10 @@ def _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, valid, dense, *, fe
     _check(tgt, "target", feat_dtype, 3, dev)
     if bank_labels.shape[:3] != (cap, b, p_loc) or d_pad % 8:
         raise ValueError(f"bank_labels shape {tuple(bank_labels.shape)} does not match the bank")
-    if c % 16 or c > MAX_WIDTH:
-        raise ValueError(f"feature width {c} must be a multiple of 16 and at most {MAX_WIDTH}")
+    wide = c > NARROW_WIDTH
+    if c % 16 or c > (NARROW_WIDTH if f32 else MAX_WIDTH) or (wide and c % 64):
+        raise ValueError(f"feature width {c} must be a multiple of 16 and at most {NARROW_WIDTH}, or (bf16) a "
+                         f"multiple of 64 up to {MAX_WIDTH}")
     if tgt.shape != (b, p, c):
         raise ValueError(f"target_feats must be ({b}, {p}, {c}), got {tuple(tgt.shape)}")
     if p_loc < p and row_base == 0 and not return_stats:
@@ -191,7 +198,7 @@ def _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, valid, dense, *, fe
 
     name = "affinity_bank_f32" if f32 else "affinity_bank"
     lib = _library(name)
-    group = LABEL_GROUP_F32 if f32 else LABEL_GROUP
+    group = LABEL_GROUP_F32 if f32 else LABEL_GROUP_WIDE if wide else LABEL_GROUP
     # the library's host code works on the current device (its shared-memory
     # attribute, SM count and occupancy, the launch itself): make it dev's
     with torch.cuda.device(dev):
@@ -213,6 +220,8 @@ def _launch_bank_kernel(bank_feats, bank_labels, tgt, slots, valid, dense, *, fe
                 raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
             profiling.count("affinity.sweeps")
             profiling.count("affinity.splits", splits)
+            if wide:
+                profiling.count("affinity.wide_sweeps")
     # both sweeps write float32 partials: one combine kernel
     return _launch_combine(_library(), pm, pl, pacc, return_stats)
 
@@ -419,6 +428,8 @@ def _gathered_bank(ref_feats, target_feat, ref_labels, feature_hw, temperature, 
             f"labels {tuple(ref_labels.shape)}, feature_hw {tuple(feature_hw)}"
         )
     c_pad, d_pad = -(-c // 16) * 16, -(-d // 8) * 8
+    if c_pad > NARROW_WIDTH:  # the wide sweep takes whole 64-channel boxes
+        c_pad = -(-c // 64) * 64
     pad_c = torch.nn.functional.pad
     ref = pad_c((ref_feats.float() * temperature).to(torch.bfloat16), (0, c_pad - c))
     tgt = pad_c(target_feat.to(torch.bfloat16), (0, c_pad - c))

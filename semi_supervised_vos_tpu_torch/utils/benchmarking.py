@@ -113,15 +113,26 @@ def bound(tensor_ops, nbytes: float, exps: float = 0.0, peak: float = PEAK_BF16_
 
 
 def conv_flops(net: torch.nn.Module, x: torch.Tensor) -> float:
-    """Multiply-adds x 2 of every convolution in one forward of ``x``
-    (counted from the output shapes, so a network and input on the ``meta``
-    device count without computing)."""
+    """Multiply-adds x 2 of every convolution in one forward of ``x``, and
+    of a ViT's linear layers and attention products (q kᵀ and the weights
+    times v, 4·T²·C over (N, T, C) tokens; ``models/vit.py``), counted from
+    the output shapes, so a network and input on the ``meta`` device count
+    without computing."""
+    from semi_supervised_vos_tpu_torch.models.vit import Attention
+
     total = []
 
     def hook(m, inp, out):
-        total.append(2.0 * out.numel() * m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1])
+        if isinstance(m, torch.nn.Linear):
+            total.append(2.0 * out.numel() * m.in_features)
+        elif isinstance(m, Attention):
+            n, t, c = inp[0].shape
+            total.append(4.0 * n * t * t * c)
+        else:
+            total.append(2.0 * out.numel() * m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1])
 
-    handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    kinds = (torch.nn.Conv2d, torch.nn.Linear, Attention)
+    handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, kinds)]
     try:
         with torch.no_grad():
             net.eval()(x)
@@ -132,12 +143,13 @@ def conv_flops(net: torch.nn.Module, x: torch.Tensor) -> float:
 
 
 def vosnet_frame_flops(arch: str, hw: Sequence[int]) -> float:
-    """:func:`conv_flops` of one (H, W) frame through a VOSNet of ``arch``,
-    counted on the ``meta`` device."""
-    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet
+    """:func:`conv_flops` of one (H, W) frame through the network ``arch``
+    names (``models/vos_net.py::build_vos_net``), counted on the ``meta``
+    device."""
+    from semi_supervised_vos_tpu_torch.models.vos_net import build_vos_net
 
     with torch.device("meta"):
-        net = VOSNet(arch)
+        net = build_vos_net(arch)
         return conv_flops(net, torch.empty(1, 3, *hw))
 
 

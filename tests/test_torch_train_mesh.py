@@ -25,7 +25,7 @@ from semi_supervised_vos_tpu.train.loop import make_train_step as jax_make_train
 from semi_supervised_vos_tpu.train.train_state import init_train_state
 from semi_supervised_vos_tpu.train.train_state import make_optimizer as jax_make_optimizer
 from semi_supervised_vos_tpu_torch.models.convert import state_dict_from_jax
-from semi_supervised_vos_tpu_torch.models.vos_net import MODEL_NAMES, VOSNet
+from semi_supervised_vos_tpu_torch.models.vos_net import RESNET_NAMES, VOSNet
 from semi_supervised_vos_tpu_torch.parallel.mesh import make_mesh
 from semi_supervised_vos_tpu_torch.parallel.tp import REPLICATED, SPLIT_1D, SPLIT_4D, leaf_spec, shard_tp, tp_shardings
 from semi_supervised_vos_tpu_torch.parallel.train_mesh import MeshNet, make_mesh_eval_step, make_mesh_train_step
@@ -223,7 +223,7 @@ def test_freeze_under_tp():
                                        atol=1e-5)
 
 
-@pytest.mark.parametrize("model_name", MODEL_NAMES)
+@pytest.mark.parametrize("model_name", RESNET_NAMES)
 def test_rule_covers_every_leaf(model_name):
     """Every 1-D leaf is per-channel (>= 64) and every 4-D leaf an OIHW
     kernel with O >= 64 dividing over 8, for every backbone ``train --tp``
