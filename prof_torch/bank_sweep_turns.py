@@ -10,10 +10,12 @@ the benchmark's shapes (K 9 slots of frame 50's schedule, C 256, 22
 classes): 480p (60 x 107) at B = 1 and B = 8, the 1080p bank of
 ``r50-1080p-vb2`` (135 x 240, B = 2), probability mode (no prior) at 480p
 B = 1, four stats shards of the 480p bank with the combine, and
-``affinity_propagate_fused`` on a gathered 480p set. Each time is the
-median of 20 CUDA-event timings after 3 warm-up calls; the 480p B = 1
-output is also held against the plain version (max_abs, argmax
-agreement). Turns: parent, change, change, parent. Prints the card's name and power limit, one line per turn, and a JSON line
+``affinity_propagate_fused`` on a gathered 480p set; then the wide sweep
+(C 768, DINO ViT-B/8's unit-norm features at its temperature 10): 480p at
+B = 1 and B = 8, 1080p at B = 2, and two stats shards of the 480p bank with
+the combine. Each time is the median of 20 CUDA-event timings after 3
+warm-up calls; the 480p B = 1 outputs of both widths are also held against
+the plain version (max_abs, argmax agreement). Turns: parent, change, change, parent. Prints the card's name and power limit, one line per turn, and a JSON line
 last. Needs one NVIDIA Hopper card (a few minutes).
 """
 
@@ -26,7 +28,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-SHAPES = ("480p_b1", "480p_b8", "1080p_b2", "prob_480p_b1", "stats4_480p_b1", "fused_480p")
+SHAPES = ("480p_b1", "480p_b8", "1080p_b2", "prob_480p_b1", "stats4_480p_b1", "fused_480p",
+          "wide_480p_b1", "wide_480p_b8", "wide_1080p_b2", "wide_stats2_480p_b1")
 
 
 def one(root: Path) -> dict:
@@ -97,6 +100,35 @@ def one(root: Path) -> dict:
             out["fused_480p"] = time_ms(lambda: aff.affinity_propagate_fused(
                 ref, tgt[0], lab, feature_hw=(hd, wd), temperature=1.0, valid=valid, dense=dense))
         del feats, labels, tgt
+
+    c = 768  # the wide sweep: unit-norm rows, as the ViT's, at its temperature
+    for shape, (hd, wd, b) in (("wide_480p_b1", (60, 107, 1)), ("wide_480p_b8", (60, 107, 8)),
+                               ("wide_1080p_b2", (135, 240, 2))):
+        p = hd * wd
+        feats = torch.nn.functional.normalize(torch.randn((cap, b, p, c), generator=gen, device=dev), dim=-1)
+        labels = torch.nn.functional.one_hot(torch.randint(0, d, (cap, b, p), generator=gen, device=dev), d_pad)
+        tgt = torch.nn.functional.normalize(torch.randn((b, p, c), generator=gen, device=dev), dim=-1)
+        feats, labels, tgt = feats.to(torch.bfloat16), labels.to(torch.bfloat16), tgt.to(torch.bfloat16).float()
+        kw = dict(feature_hw=(hd, wd), temperature=10.0, valid=valid, dense=dense)
+        out[shape] = time_ms(lambda: aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw))
+        if shape == "wide_480p_b1":
+            got = aff.affinity_from_bank_batched(feats, labels, tgt, slots, **kw)[0, :d]
+            expect = aff.affinity_from_bank_plain(feats, labels.float(), tgt, slots, **kw)[0, :d]
+            out["max_abs_wide_480p_b1"] = (got - expect).abs().max().item()
+            out["agree_wide_480p_b1"] = (got.argmax(0) == expect.argmax(0)).double().mean().item()
+            half = p // 2
+            halves = [(feats[:, 0, s * half:(s + 1) * half].contiguous(),
+                       labels[:, 0, s * half:(s + 1) * half].contiguous()) for s in range(2)]
+
+            def wide_shards():
+                parts = [aff.affinity_from_bank_stats(f, lab, tgt[0], slots, row_base=s * half, **kw)
+                         for s, (f, lab) in enumerate(halves)]
+                m, l, acc = (torch.stack(x)[:, None] for x in zip(*parts))
+                return aff.combine_partials(m.contiguous(), l.contiguous(), acc.contiguous())
+
+            out["wide_stats2_480p_b1"] = time_ms(wide_shards)
+            del halves
+        del feats, labels, tgt
     return out
 
 
@@ -123,8 +155,8 @@ def main() -> int:
             continue
         turn = dict(name=name, **json.loads(proc.stdout.strip().splitlines()[-1]))
         print(f"{name}: " + ", ".join(f"{s} {turn[s]:.4f} ms" for s in SHAPES)
-              + f"; 480p B=1 max_abs {turn['max_abs_480p_b1']:.3e}, argmax agreement {turn['agree_480p_b1']:.6f}",
-              flush=True)
+              + f"; 480p B=1 max_abs {turn['max_abs_480p_b1']:.3e}, argmax agreement {turn['agree_480p_b1']:.6f}"
+              + f"; wide {turn['max_abs_wide_480p_b1']:.3e}, {turn['agree_wide_480p_b1']:.6f}", flush=True)
         turns.append(turn)
     print(json.dumps(dict(card=card, turns=turns)))
     return 0

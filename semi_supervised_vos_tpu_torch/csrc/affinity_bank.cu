@@ -575,57 +575,88 @@ __global__ void __launch_bounds__(kThreads, 1)
 // At C = 768 (DINO ViT-B/8) the design above does not fit: a 192-row target
 // tile is 294,912 B of the 232,448 a block may use, a 64-row bank tile
 // 98,304 B, and the A fragments 192 registers a thread against the 160 that
-// setmaxnreg gives. The wide variant keeps the same producer / consumer
-// split and runs the same per-tile code (column_tables, tile_info, row_table,
-// tile_epilogue and write_partials above, at kRows = TQW), and moves the rest:
-// - Target rows: TQW = 128 a block, two consumer warpgroups of 64 and the
-//   producer warpgroup (384 threads). The target tile stays in shared memory
-//   (C / 64 boxes of 64 rows x 128 bytes a warpgroup, SW128, 196,608 B at C
-//   768) and is the A operand of wgmma from shared memory (SS), so no
-//   fragments live in registers: a consumer thread holds its 32 scores, 12
-//   label accumulators and the softmax state (no setmaxnreg; at most 168
-//   registers a thread at 384 threads).
+// setmaxnreg gives. The wide variant keeps the producer / consumer split and
+// runs the same per-tile code (column_tables, tile_info, row_table,
+// tile_epilogue and write_partials above, at kRows = TQW, once per 64-row
+// half), and moves the rest:
+// - Target rows: TQW = 128 a block, two 64-row halves of C / 64 boxes of 64
+//   rows x 128 bytes (SW128). Each consumer thread holds the first box of
+//   both halves as wgmma A fragments (kWideRegBoxes; 32 registers); the
+//   other C / 64 - 1 boxes a half stay in shared memory (180,224 B at C
+//   768) and are read by wgmma from there (SS).
 // - The bank streams in 64-channel boxes (8,192 B: 64 rows x 128 bytes,
 //   SW128, the boxes the TMA ring above uses) through a ring of box stages,
-//   as deep as fits: 3 at 480p and C 768 (6 at C 512), 2 at 1080p. A tile's
-//   similarity is C / 64 boxes of 4 wgmma m64n64k16 each; each warpgroup
-//   keeps one box's products in flight and frees the box before it.
+//   as deep as fits: 5 at 480p and C 768 (8 at C 512), 4 at 1080p. Its first
+//   two stages hold the target's register boxes until every consumer warp
+//   has loaded them (barrier `regs_in`). One thread of the producer's first
+//   warp does nothing but issue the target and the boxes, in iteration
+//   order, each as its stage comes free.
+// - Two consumer warpgroups, each over all 128 target rows, take alternate
+//   (slot, bank tile) iterations of the block's split: warpgroup 0 the 1st,
+//   3rd, ..., warpgroup 1 the 2nd, 4th, .... Each box has one reader, which
+//   runs its 8 wgmma m64n64k16 (4 k16 steps, each for both halves, which
+//   share the box as B), waits for them and frees the box at once. So a
+//   warpgroup's boxes land as the other frees those of the tile before, and
+//   its products run while the other runs its tile's epilogue (two
+//   tile_epilogue calls, one a half). A warpgroup starts a tile's boxes only
+//   once the other has seen every box of the tile before land (an mbarrier
+//   a warpgroup, `turn`), so that no waiter runs a ring phase ahead of the
+//   barrier it waits on.
 // - A tile's labels (at most 24 columns: one sweep at the 22-class budget),
 //   its row table fy (TM + TQW - 1 floats), column indices and TileInfo sit
-//   in a ring of two tile stages of their own, filled while the boxes of
-//   the tile before stream; the column tables are as above.
-// - Shared memory at C 768, 24 label columns: target 196,608 + 3 boxes
-//   24,576 + 2 x (labels 3,072 + fy 764 + columns 256 + info 32) + column
-//   tables 2 x (2 wd - 1) x 4 + barriers = 231,464 B at 480p (wd 107); at
-//   1080p (wd 240) the ring takes 2 boxes.
-// The two warpgroups read the same boxes, so they run nearly in step: the
-// tensor cores wait during the tile's epilogue, which the narrow sweep hides
-// under the other warpgroups' products. A block streams the sampled bank
-// ceil(P / 128) times a frame from L2 (51 x 88.7 MB a lane at 480p).
+//   in the tile stage of the warpgroup that takes it (two stages, one a
+//   warpgroup), written by the producer's other three warps as soon as that
+//   warpgroup has left its tile before, so the labels land during the
+//   tile's products; the column tables are as above.
+// - Registers: setmaxnreg gives 40 a producer thread and 232 a consumer
+//   thread (40 + 2 x 232 = 3 x 168). A consumer holds both halves' 32 scores,
+//   12 label accumulators and softmax state (2 x 48) and the 32 registers of
+//   A fragments; a second register box (64) spills and ran slower.
+// - After the sweep, warpgroup 1 hands its (m, l, acc) to warpgroup 0
+//   through the target's shared memory (free once both have waited on their
+//   last products), which merges them as the combine kernel merges splits
+//   (m = max, the rest rescaled by e^(m_w - m); a warpgroup with no tile
+//   holds m = -1e30, l = 0 and weighs 0) and writes the split's partials once.
+// - Shared memory at C 768, 24 label columns: target 180,224 + 5 boxes
+//   40,960 + 2 x (labels 3,072 + fy 764 + columns 256 + info 32) + column
+//   tables 2 x (2 wd - 1) x 4 + barriers = 231,552 B at 480p (wd 107).
+// Each box is loaded once a block and iteration, as before: a block streams
+// the sampled bank ceil(P / 128) times a frame from L2 (51 x 88.7 MB a lane
+// at 480p), and alternation moves no byte more. What bounds it (H100, 480p,
+// B = 8, parts taken out in turn, the ring at 3 boxes before the register
+// box): the stream alone 9.7 ms, with the products 13.0, all 16.1, of which
+// the prior's table reads 2.7 and the label product 0.9. The ring's depth
+// sets the stream's rate (each box an L2 round trip): 5 boxes took the whole
+// sweep to 12.8 ms.
 struct Wide {};  // the width class of the wide sweep's instantiation
 
 constexpr int kNarrowMaxC = 16 * kMaxCK;  // 256
-constexpr int kWideWG = 2;                // consumer warpgroups of 64 target rows each
-constexpr int TQW = 64 * kWideWG;         // target rows per block
+constexpr int kWideWG = 2;                // consumer warpgroups, each over all TQW target rows
+constexpr int kWideHalves = 2;            // 64-row halves of the target tile
+constexpr int TQW = 64 * kWideHalves;     // target rows per block
 constexpr int kWideConsumerWarps = 4 * kWideWG;
 constexpr int kWideThreads = 128 * (kWideWG + 1);
+constexpr int kWideProducerRegs = 40, kWideConsumerRegs = 232;  // setmaxnreg: 40 + 2 x 232 = 3 x 168
 constexpr int kWideMaxC = 768;
 constexpr int kWideNT = 3;                // label n-tiles a thread holds
 constexpr int kWideMaxDw = 8 * kWideNT;   // label columns per launch: 24
+constexpr int kWideRegBoxes = 1;          // 64-channel target boxes a half that consumers hold in registers
 constexpr int kWideMaxBoxStages = 8;
-constexpr int kWideTileStages = 2;
+constexpr int kWideTileStages = kWideWG;  // one a consumer warpgroup
 constexpr int kFyLenW = TM + TQW - 1;
 
 struct SmemWide {
   size_t ring, lab, lab_stage, fy, rx, info, fx, bars, total;
 };
 
-// The target tile (each consumer warpgroup's 64 rows as C / 64 boxes), the
-// ring of `box_stages` bank boxes, then two tile stages of labels, row
-// tables, column indices and TileInfo, the column tables and the barriers.
+// The target boxes that stay in shared memory (each 64-row half's last
+// C / 64 - kWideRegBoxes), the ring of `box_stages` bank boxes (its first
+// 2 kWideRegBoxes stages hold the target's first boxes until the consumers
+// have them in registers), then two tile stages of labels, row tables,
+// column indices and TileInfo, the column tables and the barriers.
 __host__ __device__ inline SmemWide smem_layout_wide(int c, int wd, int dw, int box_stages, bool fx_table) {
   SmemWide o;
-  o.ring = size_t(kWideWG) * (c / KB) * kBoxBytes;
+  o.ring = size_t(kWideHalves) * (c / KB - kWideRegBoxes) * kBoxBytes;
   o.lab = o.ring + size_t(box_stages) * kBoxBytes;
   o.lab_stage = align128(size_t(TM) * dw * 2);
   o.fy = o.lab + kWideTileStages * o.lab_stage;
@@ -633,19 +664,28 @@ __host__ __device__ inline SmemWide smem_layout_wide(int c, int wd, int dw, int 
   o.info = align128(o.rx + size_t(kWideTileStages) * TM * 4);
   o.fx = align128(o.info + size_t(kWideTileStages) * sizeof(TileInfo));
   o.bars = align128(o.fx + (fx_table ? size_t(2) * (2 * wd - 1) * 4 : 0));
-  o.total = align128(o.bars + (2 * kWideMaxBoxStages + 2 * kWideTileStages + 1) * 8);
+  o.total = align128(o.bars + (2 * kWideMaxBoxStages + 2 * kWideTileStages + 2 + kWideWG) * 8);
   return o;
 }
 
 // The deepest box ring that fits, with the column tables if they fit.
 int ring_stages_wide(int c, int wd, int dw, int* fx_table) {
   for (int table = 1; table >= 0; --table)
-    for (int s = kWideMaxBoxStages; s >= 2; --s)
+    for (int s = kWideMaxBoxStages; s >= 2 * kWideRegBoxes + 1; --s)
       if (smem_layout_wide(c, wd, dw, s, table).total <= size_t(kMaxSmem)) {
         *fx_table = table;
         return s;
       }
   return 0;
+}
+
+// Moves a ring position (stage, phase) on by n boxes.
+__device__ __forceinline__ void ring_advance(int& stage, uint32_t& phase, int n, int stages) {
+  stage += n;
+  while (stage >= stages) {
+    stage -= stages;
+    phase ^= 1;
+  }
 }
 
 template <typename W, int kNT>
@@ -666,20 +706,24 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   TileInfo* info_s = reinterpret_cast<TileInfo*>(smem + lay.info);
   float* fx_s = reinterpret_cast<float*>(smem + lay.fx);
   uint64_t* box_full = reinterpret_cast<uint64_t*>(smem + lay.bars);  // a bank box is in
-  uint64_t* box_empty = box_full + kWideMaxBoxStages;                  // the consumer warps are done with it
+  uint64_t* box_empty = box_full + kWideMaxBoxStages;                  // its warpgroup is done with it
   uint64_t* tile_full = box_empty + kWideMaxBoxStages;                 // a tile's labels and tables are in
-  uint64_t* tile_empty = tile_full + kWideTileStages;                  // the consumer warps are done with them
+  uint64_t* tile_empty = tile_full + kWideTileStages;                  // its warpgroup is done with them
   uint64_t* tgt_full = tile_empty + kWideTileStages;                   // the target tile is in
+  uint64_t* regs_in = tgt_full + 1;  // the consumers hold the target's first boxes in registers
+  uint64_t* turn = regs_in + 1;      // warpgroup w's turn: the other has seen every box of the tile before land
   if (tid == 0) {
     for (int s = 0; s < box_stages; ++s) {
       mbar_init(box_full + s, 1);
-      mbar_init(box_empty + s, kWideConsumerWarps);
+      mbar_init(box_empty + s, 4);  // the reading warpgroup's four warps
     }
     for (int s = 0; s < kWideTileStages; ++s) {
-      mbar_init(tile_full + s, 1 + 4);  // the labels' bytes, then each producer warp's tables
-      mbar_init(tile_empty + s, kWideConsumerWarps);
+      mbar_init(tile_full + s, 1 + 3);  // the labels' bytes, then each table warp's arrival
+      mbar_init(tile_empty + s, 4);
     }
     mbar_init(tgt_full, 1);
+    mbar_init(regs_in, kWideConsumerWarps);
+    for (int w = 0; w < kWideWG; ++w) mbar_init(turn + w, 1);
     fence_mbar_init();
   }
   if (warp >= kWideConsumerWarps && prm.fx_table)
@@ -687,111 +731,210 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   __syncthreads();  // the column tables are built, the barriers initialised
 
   if (warp >= kWideConsumerWarps) {
-    // ---- producer warpgroup: the target tile once, then per tile its labels
-    // and tables into a tile stage and its C / 64 feature boxes into the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWideProducerRegs));
     const int ptid = tid - 32 * kWideConsumerWarps;
-    if (ptid == 0) {  // rows past P fill with zeros
-      mbar_expect_tx(tgt_full, kWideWG * boxes * kBoxBytes);
-      for (int w = 0; w < kWideWG; ++w)
-        for (int kb = 0; kb < boxes; ++kb)
-          tma_load_3d(smem + (w * boxes + kb) * kBoxBytes, &tgt_map, tgt_full, kb * KB, q0 + w * 64, b);
+    if (ptid < 32) {
+      // ---- the producer's first warp, one thread: the target tile once
+      // (box kb of half h in ring stage kb x 2 + h while kb < kWideRegBoxes),
+      // then every tile's C / 64 feature boxes in iteration order, each into
+      // the ring's next stage as it comes free
+      if (ptid == 0) {
+        mbar_expect_tx(tgt_full, kWideHalves * boxes * kBoxBytes);  // rows past P fill with zeros
+        for (int h = 0; h < kWideHalves; ++h)
+          for (int kb = 0; kb < boxes; ++kb)
+            tma_load_3d(kb < kWideRegBoxes ? smem + lay.ring + (kb * kWideHalves + h) * kBoxBytes
+                                           : smem + (h * (boxes - kWideRegBoxes) + kb - kWideRegBoxes) * kBoxBytes,
+                        &tgt_map, tgt_full, kb * KB, q0 + h * 64, b);
+        mbar_wait(regs_in, 0);  // the ring's first stages are free
+        int bstage = 0;
+        uint32_t bphase = 0;
+        for (int it = it_begin; it < it_end; ++it) {
+          const int ks = it / prm.tiles_per_slot;
+          // rows past the slot's end are loaded too and masked by the consumers
+          const int row = (__ldg(prm.table + ks) * prm.batch + b) * prm.p_loc + (it - ks * prm.tiles_per_slot) * TM;
+          for (int kb = 0; kb < boxes; ++kb) {
+            mbar_wait(box_empty + bstage, bphase ^ 1);  // passes at once on the ring's first round
+            mbar_expect_tx(box_full + bstage, kBoxBytes);
+            tma_load_2d(smem + lay.ring + size_t(bstage) * kBoxBytes, &feat_map, box_full + bstage, kb * KB, row);
+            ring_advance(bstage, bphase, 1, box_stages);
+          }
+        }
+      }
+      return;
     }
-    int bstage = 0, tstage = 0;
-    uint32_t bphase = 0, tphase = 0;
+    // ---- its other three warps: each tile's labels, TileInfo and tables
+    // into the tile stage of the warpgroup that takes it, once that
+    // warpgroup has left its tile before (row_table's 128 thread indices:
+    // the second warp takes two)
+    const int vtid = ptid - 32;
     for (int it = it_begin; it < it_end; ++it) {
-      mbar_wait(tile_empty + tstage, tphase ^ 1);  // passes at once on the first round
+      const int tstage = (it - it_begin) % kWideWG;  // the warpgroup that takes the tile
+      const uint32_t tphase = ((it - it_begin) / kWideWG) & 1;
       const int ks = it / prm.tiles_per_slot;
       const int lrow0 = (it - ks * prm.tiles_per_slot) * TM;
       const float inv_s = __int_as_float(__ldg(prm.table + prm.k + ks));
       const int r0 = prm.row_base + lrow0;
-      // rows past the slot's end are loaded too and masked by the consumers
-      const int row = (__ldg(prm.table + ks) * prm.batch + b) * prm.p_loc + lrow0;
-      if (ptid == 0) {
+      mbar_wait(tile_empty + tstage, tphase ^ 1);  // passes at once on the first round
+      if (vtid == 0) {
+        const int row = (__ldg(prm.table + ks) * prm.batch + b) * prm.p_loc + lrow0;
         mbar_expect_tx(tile_full + tstage, uint32_t(TM) * prm.dw * 2);
         tma_load_2d(smem + lay.lab + tstage * lay.lab_stage, &lab_map, tile_full + tstage, prm.d_off, row);
         info_s[tstage] = tile_info<TQW>(prm, ks, lrow0, r0, q0, inv_s, wdf);
       }
-      if (inv_s != 0.f) row_table<TQW>(fy_s, rx_s, tstage, r0, q0, inv_s, wdf, wd, ptid);
+      if (inv_s != 0.f) {
+        row_table<TQW>(fy_s, rx_s, tstage, r0, q0, inv_s, wdf, wd, vtid);
+        if (vtid < 32) row_table<TQW>(fy_s, rx_s, tstage, r0, q0, inv_s, wdf, wd, vtid + 96);
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(tile_full + tstage);
-      if (++tstage == kWideTileStages) {
-        tstage = 0;
-        tphase ^= 1;
-      }
-      if (ptid == 0) {
-        for (int kb = 0; kb < boxes; ++kb) {
-          mbar_wait(box_empty + bstage, bphase ^ 1);
-          mbar_expect_tx(box_full + bstage, kBoxBytes);
-          tma_load_2d(smem + lay.ring + size_t(bstage) * kBoxBytes, &feat_map, box_full + bstage, kb * KB, row);
-          if (++bstage == box_stages) {
-            bstage = 0;
-            bphase ^= 1;
-          }
-        }
-      }
     }
     return;
   }
 
-  // ---- consumers: warpgroup cwg owns target rows 64 cwg.. of the tile -----
+  // ---- consumers: warpgroup cwg takes iterations it_begin + cwg, + 2, ... --
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWideConsumerRegs));
   const int g = lane >> 2, t = lane & 3, cwg = warp >> 2;
   const int nd = prm.dw / 8;
-  float acc[kNT][4];
+  const int qloc = (warp & 3) * 16 + g;  // this thread's rows in each half: qloc and qloc + 8
+  float acc[kWideHalves][kNT][4];
+  float m_r[kWideHalves][2], l_r[kWideHalves][2];  // running max (log2 units) and denominator per row
+  int qx[kWideHalves][2];
 #pragma unroll
-  for (int i = 0; i < kNT; ++i)
+  for (int h = 0; h < kWideHalves; ++h) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  float m_r[2] = {kNegInf2, kNegInf2}, l_r[2] = {0.f, 0.f};
-  const int qloc = warp * 16 + g;  // this thread's rows: qloc and qloc + 8
-  const int qx0 = (q0 + qloc) % wd, qx1 = (q0 + qloc + 8) % wd;
-  const unsigned char* tgt = smem + cwg * boxes * kBoxBytes;
-  mbar_wait(tgt_full, 0);
-
-  int bstage = 0, tstage = 0;
-  uint32_t bphase = 0, tphase = 0;
-  for (int it = it_begin; it < it_end; ++it) {
-    // ---- S = tgt . ref^T box by box, one box's products in flight --------
-    float s[8][4];
-    int prev = -1;
-    for (int kb = 0; kb < boxes; ++kb) {
-      mbar_wait(box_full + bstage, bphase);
-      const unsigned char* bx = smem + lay.ring + size_t(bstage) * kBoxBytes;
-      const unsigned char* ax = tgt + kb * kBoxBytes;
-      fence_operands(s);
-      wgmma_fence();
+    for (int i = 0; i < kNT; ++i)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_ss(s, smem_desc_swizzled(ax + kk * 32, 8 * KB * 2, 1),
-                           smem_desc_swizzled(bx + kk * 32, 8 * KB * 2, 1), kb > 0 || kk > 0);
-      wgmma_commit();
-      if (prev >= 0) {
-        wgmma_wait<1>();  // the box before is read: free it
-        __syncwarp();
-        if (lane == 0) mbar_arrive(box_empty + prev);
-      }
-      prev = bstage;
-      if (++bstage == box_stages) {
-        bstage = 0;
-        bphase ^= 1;
-      }
-    }
-    wgmma_wait<0>();
-    fence_operands(s);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(box_empty + prev);
-    mbar_wait(tile_full + tstage, tphase);
-    const bf16* ls = reinterpret_cast<const bf16*>(smem + lay.lab + tstage * lay.lab_stage);
-    const TileInfo ti = info_s[tstage];
-    tile_epilogue<kNT, TQW>(s, acc, m_r, l_r, ti, prm, ls, fy_s, rx_s, fx_s, tstage, wd, qloc, qx0, qx1, lane, t,
-                            nd);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(tile_empty + tstage);  // this warp is done with the tile stage
-    if (++tstage == kWideTileStages) {
-      tstage = 0;
-      tphase ^= 1;
+      for (int e = 0; e < 4; ++e) acc[h][i][e] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_r[h][r] = kNegInf2;
+      l_r[h][r] = 0.f;
+      qx[h][r] = (q0 + 64 * h + qloc + 8 * r) % wd;
     }
   }
-  write_partials<kNT>(prm, split, b, q0, qloc, t, nd, m_r, l_r, acc);
+  // the target's first kWideRegBoxes boxes of each half as wgmma A
+  // fragments (this warp's 16 rows; 16-byte chunk j of row r of a swizzled
+  // box at chunk j ^ (r & 7)), which frees their ring stages
+  uint32_t qa[kWideHalves][4 * kWideRegBoxes][4];
+  mbar_wait(tgt_full, 0);
+  {
+    const int r = (warp & 3) * 16 + (lane & 15);
+#pragma unroll
+    for (int h = 0; h < kWideHalves; ++h)
+#pragma unroll
+      for (int kk = 0; kk < 4 * kWideRegBoxes; ++kk) {
+        const int j = (kk & 3) * 2 + (lane >> 4);
+        ldmatrix_x4(qa[h][kk], smem + lay.ring + ((kk >> 2) * kWideHalves + h) * kBoxBytes + r * 128 +
+                                   ((j ^ (r & 7)) << 4));
+      }
+  }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(regs_in);
+  const unsigned char* tgt = smem;  // the target boxes kb >= kWideRegBoxes: (h, kb) at h x (boxes - R) + kb - R
+
+  int bstage = 0;
+  uint32_t bphase = 0, tphase = 0, turn_phase = 0;
+  ring_advance(bstage, bphase, cwg * boxes, box_stages);  // warpgroup 1's first box follows warpgroup 0's tile
+  for (int it = it_begin + cwg; it < it_end; it += kWideWG) {
+    if (it > it_begin) {  // the other warpgroup has seen the tile before land
+      mbar_wait(turn + cwg, turn_phase);
+      turn_phase ^= 1;
+    }
+    // ---- S = tgt . ref^T for both halves, box by box (A from registers for
+    // the first kWideRegBoxes boxes, then from shared memory); each box is
+    // freed as soon as its products are done, so the ring refills early
+    float s[kWideHalves][8][4];
+    auto next_box = [&](int kb) {
+      mbar_wait(box_full + bstage, bphase);
+      if (kb == boxes - 1 && it + 1 < it_end && warp % 4 == 0 && lane == 0)
+        mbar_arrive(turn + (cwg ^ 1));  // every box of this tile has landed: the other's turn
+#pragma unroll
+      for (int h = 0; h < kWideHalves; ++h) fence_operands(s[h]);
+      wgmma_fence();
+      return smem + lay.ring + size_t(bstage) * kBoxBytes;
+    };
+    auto free_box = [&]() {
+      wgmma_commit();
+      wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(box_empty + bstage);
+      ring_advance(bstage, bphase, 1, box_stages);
+    };
+#pragma unroll
+    for (int kb = 0; kb < kWideRegBoxes; ++kb) {
+      const unsigned char* bx = next_box(kb);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < kWideHalves; ++h)
+          wgmma_m64n64k16(s[h], qa[h][4 * kb + kk], smem_desc_swizzled(bx + kk * 32, 8 * KB * 2, 1), kb > 0 || kk > 0);
+      free_box();
+    }
+    for (int kb = kWideRegBoxes; kb < boxes; ++kb) {
+      const unsigned char* bx = next_box(kb);
+      const unsigned char* ax = tgt + (kb - kWideRegBoxes) * kBoxBytes;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < kWideHalves; ++h)
+          wgmma_m64n64k16_ss(s[h],
+                             smem_desc_swizzled(ax + h * (boxes - kWideRegBoxes) * kBoxBytes + kk * 32, 8 * KB * 2, 1),
+                             smem_desc_swizzled(bx + kk * 32, 8 * KB * 2, 1), true);
+      free_box();
+    }
+#pragma unroll
+    for (int h = 0; h < kWideHalves; ++h) fence_operands(s[h]);
+    ring_advance(bstage, bphase, (kWideWG - 1) * boxes, box_stages);  // past the other warpgroup's tile
+    mbar_wait(tile_full + cwg, tphase);
+    const bf16* ls = reinterpret_cast<const bf16*>(smem + lay.lab + cwg * lay.lab_stage);
+    const TileInfo ti = info_s[cwg];
+#pragma unroll
+    for (int h = 0; h < kWideHalves; ++h)
+      tile_epilogue<kNT, TQW>(s[h], acc[h], m_r[h], l_r[h], ti, prm, ls, fy_s, rx_s, fx_s, cwg, wd, 64 * h + qloc,
+                              qx[h][0], qx[h][1], lane, t, nd);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(tile_empty + cwg);  // this warp is done with the tile stage
+    tphase ^= 1;
+  }
+
+  // ---- merge: warpgroup 1's state into warpgroup 0's, through the target
+  // tile's shared memory (value j of a thread at j x 128 + its index) ------
+  named_barrier(1, 128 * kWideWG);  // both warpgroups' products are done with the target tile
+  float* xs = reinterpret_cast<float*>(smem) + (tid & 127);
+  if (cwg == 1) {
+#pragma unroll
+    for (int h = 0; h < kWideHalves; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float* x = xs + (h * 2 + r) * (2 + 2 * kNT) * 128;
+        x[0] = m_r[h][r];
+        x[128] = l_r[h][r];
+#pragma unroll
+        for (int d = 0; d < kNT; ++d) {
+          x[(2 + 2 * d) * 128] = acc[h][d][2 * r];
+          x[(3 + 2 * d) * 128] = acc[h][d][2 * r + 1];
+        }
+      }
+  }
+  named_barrier(1, 128 * kWideWG);
+  if (cwg == 1) return;
+#pragma unroll
+  for (int h = 0; h < kWideHalves; ++h) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* x = xs + (h * 2 + r) * (2 + 2 * kNT) * 128;
+      const float m = fmaxf(m_r[h][r], x[0]);
+      const float a0 = fast_exp2(m_r[h][r] - m), a1 = fast_exp2(x[0] - m);
+      m_r[h][r] = m;
+      l_r[h][r] = l_r[h][r] * a0 + x[128] * a1;
+#pragma unroll
+      for (int d = 0; d < kNT; ++d) {
+        acc[h][d][2 * r] = acc[h][d][2 * r] * a0 + x[(2 + 2 * d) * 128] * a1;
+        acc[h][d][2 * r + 1] = acc[h][d][2 * r + 1] * a0 + x[(3 + 2 * d) * 128] * a1;
+      }
+    }
+    write_partials<kNT>(prm, split, b, q0 + 64 * h, qloc, t, nd, m_r[h], l_r[h], acc[h]);
+  }
 }
 
 // out = sum_s acc_s e^(m_s - m*) / sum_s l_s e^(m_s - m*), m* = max_s m_s;

@@ -3,7 +3,11 @@ wider than 256 channels: DINO ViT-B/8's 768) against the plain PyTorch
 version, on an NVIDIA Hopper card at 480p (60 x 107); every test skips
 without one. Widths 512 and 768, label and probability propagation, the
 prior on and off, one lane and eight, stats mode over two bank shards with
-the combine. Gates as the narrow sweep's (``test_torch_cuda_affinity_pipeline.py``):
+the combine; and the two consumer warpgroups' alternation at its edges: a
+split of an odd number of tiles (warpgroup 1 takes one fewer), splits of one
+tile (warpgroup 1 takes none and merges its empty state), and the 1080p
+grid (135 x 240: its wider column tables leave the shallowest ring, 4 boxes
+at C 768) against 16 row shards of the plain version. Gates as the narrow sweep's (``test_torch_cuda_affinity_pipeline.py``):
 max_abs <= 3.4e-5; argmax agreement 0.999 (random unit-norm features at
 temperature 10 give near-flat class scores, all 22 within ~30 % of each
 other, so a few of 6,420 pixels tie: one did at C 512); combined stats
@@ -14,6 +18,7 @@ target after the temperature (10, the ViT's) as the kernel does.
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_affinity_wide.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -120,3 +125,78 @@ def test_wide_widths_are_checked(card):
         feats, labels, tgt = _inputs(card, 1, 4, 1, 64, 64, c)
         with pytest.raises(ValueError, match="multiple of 64"):
             tap.affinity_from_bank_batched(feats, labels, tgt, [0, 1], feature_hw=(8, 8), temperature=1.0)
+
+
+def _forced_sweep(feats, labels, tgt, slots, valid, dense, hw, splits, ips, spatial, temperature=10.0):
+    """The sweep with the split plan given (``splits`` blocks per target
+    tile, ``ips`` tiles each) instead of chosen, then the combine kernel:
+    (B, D_pad, P) scores (as ``test_torch_cuda_affinity_pipeline.py``'s, with
+    the temperature folded in)."""
+    dev = feats.device
+    lib = tap._library()
+    cap, b, p_loc, c = feats.shape
+    d_pad = labels.shape[-1]
+    p = hw[0] * hw[1]
+    slots, inv_sigma2, bias = tap.slot_table(slots, valid, dense, 8.0, 21.0, spatial)
+    table = np.stack([slots, inv_sigma2.view(np.int32), bias.view(np.int32), tap.column_tables(inv_sigma2)])
+    table = torch.as_tensor(table, device=dev)
+    target = (tgt * temperature).to(torch.bfloat16).contiguous()
+    pm = torch.empty((splits, b, p), dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    pacc = torch.empty((splits, b, d_pad, p), dtype=torch.float32, device=dev)
+    err = lib.affinity_bank_launch(
+        feats.data_ptr(), labels.data_ptr(), target.data_ptr(), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(),
+        table.data_ptr(), len(slots), cap, b, p_loc, c, d_pad, 0, d_pad, p, hw[1], 0, splits, ips,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    assert err == 0, f"cudaError {err}"
+    return tap._launch_combine(lib, pm, pl, pacc, False)
+
+
+@pytest.mark.parametrize(
+    "case,hw,k,splits,ips",
+    [("one_iteration", (2, 20), 3, 3, 1), ("two_then_one", (2, 20), 3, 2, 2), ("odd_split", HW, 9, 2, 455)],
+)
+@pytest.mark.parametrize("c", [512, 768])
+@pytest.mark.parametrize("spatial", [True, False], ids=["label", "probability"])
+def test_wide_forced_splits_match_plain(card, case, hw, k, splits, ips, c, spatial):
+    """Splits given, not planned, so that the two consumer warpgroups'
+    alternate tiles end unevenly: three slots of one tile each (a 2 x 20
+    grid) in three splits of one tile (warpgroup 1 takes none, and its empty
+    state, m = -1e30 and l = 0, merges as nothing) and in splits of 2 and 1;
+    nine slots of the 480p grid (909 tiles) in splits of 455 and 454 tiles
+    (warpgroup 1 takes one fewer in the first)."""
+    hd, wd = hw
+    p, cap = hd * wd, 45
+    feats, labels, tgt = _inputs(card, c + splits + spatial, cap, 1, p, p, c)
+    idx, valid, dense = sample_frames(50, 40, 9)
+    slots, valid, dense = idx[:k] % cap, valid[:k], dense[:k]
+    assert (splits - 1) * ips < k * -(-p // 64) <= splits * ips
+    got = _forced_sweep(feats, labels, tgt, slots, valid, dense, hw, splits, ips, spatial)
+    torch.cuda.synchronize()
+    kw = dict(feature_hw=hw, temperature=10.0, valid=valid, dense=dense, spatial=spatial)
+    _gates(got, _plain_by_lane(feats, labels, tgt, slots, **kw))
+
+
+@pytest.mark.parametrize("c", [512, 768])
+@pytest.mark.parametrize("spatial", [True, False], ids=["label", "probability"])
+def test_wide_1080p_matches_plain(card, c, spatial):
+    """The 1080p grid (135 x 240, K 9, one lane) through the planned split:
+    at C 768 the box ring holds 4 boxes (5 at 480p). The plain version runs on 16 row
+    shards of the bank (its (K, P_loc, P) scores at once would take 38 GB)
+    and combines them with ``combine_partials_plain``."""
+    hd, wd, cap, shards = 135, 240, 45, 16
+    p = hd * wd
+    feats, labels, tgt = _inputs(card, c + spatial, cap, 1, p, p, c)
+    idx, valid, dense = sample_frames(50, 40, 9)
+    slots = idx % cap
+    kw = dict(feature_hw=(hd, wd), temperature=10.0, valid=valid, dense=dense, spatial=spatial)
+    got = tap.affinity_from_bank_batched(feats, labels, tgt, slots, **kw)
+    torch.cuda.synchronize()
+    rows = p // shards
+    parts = [tap.affinity_from_bank_plain(feats[:, :, s * rows:(s + 1) * rows],
+                                          labels[:, :, s * rows:(s + 1) * rows].float(), tgt, slots,
+                                          row_base=s * rows, return_stats=True, **kw)
+             for s in range(shards)]
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    _gates(got, tap.combine_partials_plain(m, l, acc))
