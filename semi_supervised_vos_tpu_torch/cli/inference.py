@@ -196,36 +196,18 @@ def inference_command_impl(ref_num, data, resume, model, temperature, frame_rang
             progress = tqdm(total=len(dataset)).update
         except ImportError:
             pass
-    args = (dataset, Path(data) / "Annotations/480p", save, net)
-    lockstep = video_batch > 1
-    if lockstep:
+    additional = None
+    if inference_strategy == "multimodel":
+        additional = load_torch_checkpoint(additional_resume, VOSNet(additional_model_type))
+    args = (dataset, Path(data) / "Annotations/480p", save, net, cfg, dev)
+    if video_batch > 1:
         from semi_supervised_vos_tpu_torch.infer import batched
-    if lockstep and inference_strategy == "multimodel":
-        additional = load_torch_checkpoint(additional_resume, VOSNet(additional_model_type))
-        batched.inference_multimodel_batched(*args, additional, cfg, dev, video_batch, reduction, progress,
-                                             mesh=mesh_dp)
-    elif lockstep and inference_strategy == "3-scale":
-        batched.inference_3_scale_batched(*args, cfg, dev, video_batch, scale, progress, mesh=mesh_dp)
-    elif lockstep and inference_strategy in ("2-scale", "hor-2-scale"):
-        batched.inference_2_scale_batched(*args, cfg, dev, video_batch, inference_strategy == "hor-2-scale",
-                                          reduction, progress, mesh=mesh_dp)
-    elif lockstep and inference_strategy in batched.BATCHABLE_STRATEGIES:
-        batched.inference_batched(*args, cfg, dev, video_batch, inference_strategy, reduction, progress,
-                                  mesh=mesh_dp)
+
+        batched.inference_batched(*args, video_batch, inference_strategy, reduction, progress, mesh_dp,
+                                  additional_model=additional, scale=scale)
     elif inference_strategy == "single":
-        strategies.inference_single(*args, cfg, dev, progress, mesh=mesh)
-    elif inference_strategy == "hor-flip":
-        strategies.inference_hor_flip(*args, cfg, dev, reduction, progress, mesh=mesh)
-    elif inference_strategy == "vert-flip":
-        strategies.inference_ver_flip(*args, cfg, dev, reduction, progress, mesh=mesh)
-    elif inference_strategy in ("2-scale", "hor-2-scale"):
-        strategies.inference_2_scale(*args, cfg, dev, scale, reduction, inference_strategy == "hor-2-scale", progress,
-                                     mesh=mesh)
-    elif inference_strategy == "multimodel":
-        additional = load_torch_checkpoint(additional_resume, VOSNet(additional_model_type))
-        strategies.inference_multimodel(*args, additional, cfg, dev, reduction, progress, mesh=mesh)
-    elif inference_strategy == "3-scale":
-        strategies.inference_3_scale(*args, cfg, dev, scale, progress, mesh=mesh)
+        strategies.inference_single(*args, progress, mesh=mesh)
     else:
-        raise ValueError(f"unknown --inference-strategy {inference_strategy}")
+        strategies.inference(*args, inference_strategy, reduction, progress, mesh, additional_model=additional,
+                             scale=scale)
     logger.info("Inference done.")

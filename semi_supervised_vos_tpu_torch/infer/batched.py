@@ -14,13 +14,18 @@ pre-transposed target operand kept out of its scan) has no counterpart. On
 the CPU each lane runs the single engine's golden path, as the JAX engine's
 ``vmap`` does.
 
-Videos are grouped by resolution and run in sorted chunks of
-``video_batch`` videos; a chunk is padded to its longest video (shorter
-videos repeat their last frame and those outputs are dropped) and the last
-device chunk to a whole chunk. Per-video state never mixes and the frame
-schedule is shared, so each video's masks are the single engine's. On the
-host, rows of B frames are decoded ahead on a thread pool, and each
-chunk's PNGs are written on another while later chunks run.
+:func:`inference_batched` runs all seven strategies from their
+descriptions (``strategies.py::strategy_passes``): videos are grouped by
+their streams' resolutions and run in sorted chunks of ``video_batch``
+videos, one engine per (network, resolution) whose lanes are the videos x
+the streams that share it (hor-flip's two streams: one engine of two lanes
+a video, one bank-kernel launch a step for all of them). A chunk is padded
+to its longest video (shorter videos repeat their last frame and those
+outputs are dropped) and the last device chunk to a whole chunk. Per-video
+state never mixes and the frame schedule is shared, so each video's masks
+are the single engine's. On the host, rows of B frames are decoded ahead on
+a thread pool, and each chunk's PNGs are written on another while later
+chunks run.
 
 ``_hbm_lanes_cap`` caps the lanes on the card, and the frames of one encode
 call, by a lane-pixel budget measured on the card at two resolutions, per
@@ -35,7 +40,7 @@ lane's bank rows over each row's devices
 (``parallel/engine_sharded.py::BankShards``, whose ``local_rows`` is JAX
 ``_local_rows`` and whose ``propagate`` is JAX ``_propagate_bank_sharded``:
 one stats-mode bank-kernel launch per shard for all B lanes, then the
-combine). ``_flip2d`` is ``strategies._flip_label``.
+combine). ``_flip2d`` is ``strategies.flip_label``.
 """
 
 from __future__ import annotations
@@ -53,16 +58,25 @@ from semi_supervised_vos_tpu_torch.core.sampling import sample_frames
 from semi_supervised_vos_tpu_torch.data.loader import prefetch
 from semi_supervised_vos_tpu_torch.infer.drain import MaskDrain
 from semi_supervised_vos_tpu_torch.infer.engine import BankState, PropagationEngine, compute_dtype, grouped_map
-from semi_supervised_vos_tpu_torch.infer.strategies import REDUCTIONS, _flip_label, _with_budget, chunk_len
+from semi_supervised_vos_tpu_torch.infer.strategies import (
+    chunk_len,
+    flip_label,
+    frame_of,
+    fuse,
+    host_masks,
+    run_strategy,
+    stream_frame,
+    stream_hw,
+    with_budget,
+)
 from semi_supervised_vos_tpu_torch.models.resnet import out_spatial
 from semi_supervised_vos_tpu_torch.ops.onehot import index_to_onehot
-from semi_supervised_vos_tpu_torch.ops.resize import nearest_resize, nearest_resize_host
+from semi_supervised_vos_tpu_torch.ops.resize import nearest_resize
 from semi_supervised_vos_tpu_torch.utils.image import (
     copy_first_annotation,
     first_annotation_path,
     load_annotation,
     save_prediction,
-    save_predictions,
 )
 from semi_supervised_vos_tpu_torch.utils import profiling
 from semi_supervised_vos_tpu_torch.utils.logging import logger
@@ -76,9 +90,8 @@ class LaneFusion:
     Each video occupies ``len(pred_flips)`` consecutive lanes (hor-flip:
     lane 0 the frames, lane 1 their mirror). Label histories stay per lane,
     as the reference's per-stream histories (``inference_utils.py:90-193``);
-    only the saved output fuses the lanes: per-lane full-resolution unflip,
-    then the max of class indices (label mode) or the ``reduction`` of the
-    probability maps and a float16 argmax (probability mode).
+    only the saved output fuses the lanes, as ``strategies.py::fuse`` fuses
+    streams.
     """
 
     pred_flips: Tuple[Optional[str], ...]  # per lane: None | 'h' | 'v'
@@ -88,14 +101,6 @@ class LaneFusion:
     @property
     def lanes(self) -> int:
         return len(self.pred_flips)
-
-
-def _unflip(x: torch.Tensor, how: Optional[str], h_axis: int, w_axis: int) -> torch.Tensor:
-    if how == "h":
-        return torch.flip(x, dims=(w_axis,))
-    if how == "v":
-        return torch.flip(x, dims=(h_axis,))
-    return x
 
 
 class BatchedPropagationEngine(PropagationEngine):
@@ -157,34 +162,14 @@ class BatchedPropagationEngine(PropagationEngine):
         return pred[:, : cfg.num_classes]
 
     def _finalize(self, pred: torch.Tensor) -> torch.Tensor:
-        """(B, D, P) scores → (lanes or videos, H, W) uint8 masks: argmax at
-        feature resolution (it commutes with the nearest upsample), upsample,
-        THEN unflip (nearest upsampling is not flip-equivariant on grids that
-        do not divide the frame), then fuse the lanes of each video."""
-        fusion = self.fusion
-        # one lane: the saved mask is the argmax of the scores in both modes
-        if fusion is None or fusion.lanes == 1:
-            masks = torch.argmax(pred, dim=1).view(self.b, self.hd, self.wd)
-            return nearest_resize(masks, (self.h, self.w), hw_axes=(1, 2)).to(torch.uint8)
-        lanes = fusion.lanes
-        v = self.b // lanes
-        if fusion.probability:
-            x = pred.transpose(1, 2).reshape(self.b, self.hd, self.wd, -1)
-            x = nearest_resize(x, (self.h, self.w), hw_axes=(1, 2)).view(v, lanes, self.h, self.w, -1)
-            fused = None
-            for lane, flip in enumerate(fusion.pred_flips):
-                xl = _unflip(x[:, lane], flip, h_axis=1, w_axis=2)
-                fused = xl if fused is None else REDUCTIONS[fusion.reduction](fused, xl)
-            # float16 before the argmax, as the reference's ``.cpu().half()``
-            # (``inference_utils.py:180-182``)
-            return torch.argmax(fused.half(), dim=-1).to(torch.uint8)
-        masks = torch.argmax(pred, dim=1).view(self.b, self.hd, self.wd)
-        masks = nearest_resize(masks, (self.h, self.w), hw_axes=(1, 2)).view(v, lanes, self.h, self.w)
-        fused = None
-        for lane, flip in enumerate(fusion.pred_flips):
-            ml = _unflip(masks[:, lane], flip, h_axis=1, w_axis=2)
-            fused = ml if fused is None else torch.maximum(fused, ml)
-        return fused.to(torch.uint8)
+        """(B, D, P) scores → (lanes or videos, H, W) uint8 masks: each
+        video's lanes fused as ``strategies.fuse`` fuses streams, upsampled
+        on the device where it leaves them at feature resolution."""
+        fusion = self.fusion or LaneFusion((None,))
+        lanes = pred.view(1, self.b // fusion.lanes, fusion.lanes, *pred.shape[1:])
+        masks = fuse([lanes[:, :, i] for i in range(fusion.lanes)], [(self.hd, self.wd)] * fusion.lanes,
+                     fusion.pred_flips, (self.h, self.w), fusion.probability, fusion.reduction)[0]
+        return masks if masks.shape[1:] == (self.h, self.w) else nearest_resize(masks, (self.h, self.w), (1, 2))
 
     @torch.no_grad()
     def start_videos(self, frames_u8: np.ndarray, labels_full: np.ndarray) -> BankState:
@@ -223,18 +208,6 @@ class BatchedPropagationEngine(PropagationEngine):
     # step_chunk_small ((N, B, hd, wd) uint8 feature-resolution masks, for
     # one-lane engines) and step_chunk_scores ((N, B, D, P) float32 scores)
     # are the single engine's, on the lane axis.
-
-
-# per-strategy lane wiring: (dataset item index | None, first-frame label
-# flip, full-resolution prediction unflip) per lane, as the Streams of
-# ``strategies.py`` for the same strategies
-_STRATEGY_LANES = {
-    "single": ((None, None, None),),
-    "hor-flip": ((0, None, None), (1, "h", "h")),
-    "vert-flip": ((0, None, None), (1, "v", "v")),
-}
-
-BATCHABLE_STRATEGIES = tuple(_STRATEGY_LANES)
 
 
 # The card's lockstep envelope in lane-grid pixels (lanes x P), from two
@@ -355,7 +328,7 @@ def _groups(per_video, key: Callable[[str], tuple], clamp: Callable[[tuple], int
             yield k, chunk, [len(per_video[v]) for v in chunk]
 
 
-def _first_labels(chunk, annotation_dir, save_dir, copy: bool = True):
+def _first_labels(chunk, annotation_dir, save_dir):
     """Each chunk video's first annotation: (labels, palettes, d_max); the
     annotation is copied into the output tree."""
     labels, palettes, d_max = [], {}, 0
@@ -363,8 +336,7 @@ def _first_labels(chunk, annotation_dir, save_dir, copy: bool = True):
         ann = first_annotation_path(annotation_dir, v)
         label, d, palettes[v] = load_annotation(ann)
         d_max = max(d_max, d)
-        if copy:
-            copy_first_annotation(ann, save_dir, v)
+        copy_first_annotation(ann, save_dir, v)
         labels.append(label)
     return labels, palettes, d_max
 
@@ -433,11 +405,6 @@ def _stack(arrays) -> np.ndarray:
         return np.stack(arrays)
 
 
-def _png_writer(palettes, save_dir):
-    """emit for :func:`_run_group`: each mask straight to its palette PNG."""
-    return lambda video, t, mask: save_prediction(mask, palettes[video], save_dir, f"{t:05d}", video)
-
-
 def _frame(dataset, per_video, video, t_index, length):
     """A video's dataset item at ``t_index``, its last frame past its end."""
     return dataset[per_video[video][min(t_index, length - 1)]][0]
@@ -445,236 +412,73 @@ def _frame(dataset, per_video, video, t_index, length):
 
 def inference_batched(dataset, annotation_dir, save_dir, model, cfg, device, video_batch: int = 4,
                       strategy: str = "single", reduction: str = "mean",
-                      progress: Optional[Callable[[], None]] = None, mesh=None) -> None:
-    """``single``, ``hor-flip`` and ``vert-flip`` with ``video_batch`` videos
-    (x the strategy's lanes) per lockstep group; with ``mesh`` the lanes
-    spread over its data rows and the banks over each row's devices."""
-    lane_spec = _STRATEGY_LANES[strategy]
-    lanes = len(lane_spec)
-    fusion = LaneFusion(tuple(s[2] for s in lane_spec), cfg.probability_propagation, reduction)
+                      progress: Optional[Callable[[], None]] = None, mesh=None, additional_model=None,
+                      scale: float = 1.15) -> None:
+    """Any of the seven strategies with ``video_batch`` videos per lockstep
+    group, each group clamped to the card's lane envelope for its streams'
+    resolutions and networks; with ``mesh`` the lanes spread over its data
+    rows and the banks over each row's devices. One-stream groups fetch
+    feature-resolution masks and upsample them on the drain worker; the
+    others fuse every stream's scores on the device (``strategies.fuse``)."""
+    networks = (model, additional_model)
     per_video = _videos(dataset)
-
-    def lane_frames(item):
-        return [item if s[0] is None else item[s[0]] for s in lane_spec]
-
-    def resolution(video):
-        return tuple(lane_frames(dataset[per_video[video][0]][0])[0].shape[:2])
-
     n_chips = _mesh_data_chips(mesh)
-    for hw, chunk, lengths in _groups(per_video, resolution, lambda hw: _clamp_video_batch(
-            video_batch, lanes, hw, n_chips=n_chips, archs=(model.model,), dtype=compute_dtype(cfg, device))):
-        labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
-        engine = _make_engine(model, hw, len(chunk) * lanes, _with_budget(cfg, d_max), device, fusion, mesh)
-        state = None
-
-        def row(t):
-            return np.stack([lane for i, v in enumerate(chunk)
-                             for lane in lane_frames(_frame(dataset, per_video, v, t, lengths[i]))])
-
-        def start(first):
-            nonlocal state
-            lane_labels = [_flip_label(label, s[1]) for label in labels for s in lane_spec]
-            state = engine.start_videos(first, np.stack(lane_labels))
-
-        def step(batch, t, n):
-            nonlocal state
-            if lanes == 1:  # feature-resolution masks, upsampled on the host
-                masks, state = engine.step_chunk_small(_stack(batch), state, t)
-                return lambda: nearest_resize_host(masks[:n].cpu().numpy(), hw, hw_axes=(2, 3))
-            masks, state = engine.step_chunk(_stack(batch), state, t)
-            return lambda: masks[:n].cpu().numpy()
-
-        _run_group(chunk, lengths, row, start, step, _png_writer(palettes, save_dir), progress)
-        logger.info(f"batched group {chunk} ({strategy}) done.")
-
-
-def inference_single_batched(dataset, annotation_dir, save_dir, model, cfg, device, video_batch: int = 4,
-                             progress: Optional[Callable[[], None]] = None) -> None:
-    """The ``single`` strategy through :func:`inference_batched`."""
-    inference_batched(dataset, annotation_dir, save_dir, model, cfg, device, video_batch, "single", progress=progress)
-
-
-def inference_multimodel_batched(dataset, annotation_dir, save_dir, model, additional_model, cfg, device,
-                                 video_batch: int = 4, reduction: str = "mean",
-                                 progress: Optional[Callable[[], None]] = None, mesh=None) -> None:
-    """``multimodel`` in lockstep: each network keeps its own banks
-    (reference ``inference_utils.py:411-511``) and the two are fused at
-    feature resolution on the device, which is exact: with no flips both
-    streams share the grid, so the nearest upsample commutes with the argmax
-    and max (label mode) and with the reduction and float16 argmax
-    (probability mode)."""
-    per_video = _videos(dataset)
+    dtype = compute_dtype(cfg, device)
     probability = cfg.probability_propagation
 
-    def fuse(s1, s2, hd, wd):  # (N, B, D, P) scores of both networks
-        if probability:
-            m = torch.argmax(REDUCTIONS[reduction](s1, s2).half(), dim=2)
-        else:
-            m = torch.maximum(torch.argmax(s1, dim=2), torch.argmax(s2, dim=2))
-        return m.view(m.shape[0], m.shape[1], hd, wd).to(torch.uint8)
+    def png(video, t, mask, palette):
+        save_prediction(mask, palette, save_dir, f"{t:05d}", video)
 
-    def resolution(video):
-        return tuple(dataset[per_video[video][0]][0].shape[:2])
+    def run_pass(streams, sink=None, out_hw=None):
+        def resolutions(video):
+            hw = tuple(frame_of(dataset[per_video[video][0]][0]).shape[:2])
+            return hw, tuple(stream_hw(s, hw) for s in streams)
 
-    # two engines share the card: two lanes a video, under the wider network's envelope
-    archs = (model.model, additional_model.model)
-    n_chips = _mesh_data_chips(mesh)
-    for hw, chunk, lengths in _groups(per_video, resolution, lambda hw: _clamp_video_batch(
-            video_batch, 2, hw, n_chips=n_chips, archs=archs, dtype=compute_dtype(cfg, device))):
-        labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
-        gcfg = _with_budget(cfg, d_max)
-        e1 = _make_engine(model, hw, len(chunk), gcfg, device, mesh=mesh)
-        e2 = _make_engine(additional_model, hw, len(chunk), gcfg, device, mesh=mesh)
-        st1 = st2 = None
+        def clamp(key):  # every stream is a lane of every video on the card
+            return _clamp_video_batch(video_batch, len(streams), *key[1], n_chips=n_chips,
+                                      archs=tuple(networks[s.network].model for s in streams), dtype=dtype)
 
-        def row(t):
-            return np.stack([_frame(dataset, per_video, v, t, lengths[i]) for i, v in enumerate(chunk)])
-
-        def start(first):
-            nonlocal st1, st2
-            st1 = e1.start_videos(first, np.stack(labels))
-            st2 = e2.start_videos(first, np.stack(labels))
-
-        def step(batch, t, n):
-            nonlocal st1, st2
-            frames = _stack(batch)
-            s1, st1 = e1.step_chunk_scores(frames, st1, t)
-            s2, st2 = e2.step_chunk_scores(frames, st2, t)
-            masks = fuse(s1, s2, e1.hd, e1.wd)
-            return lambda: nearest_resize_host(masks[:n].cpu().numpy(), hw, hw_axes=(2, 3))
-
-        _run_group(chunk, lengths, row, start, step, _png_writer(palettes, save_dir), progress)
-        logger.info(f"batched group {chunk} (multimodel) done.")
-
-
-def inference_2_scale_batched(dataset, annotation_dir, save_dir, model, cfg, device, video_batch: int = 4,
-                              flip_pred: bool = False, reduction: str = "mean",
-                              progress: Optional[Callable[[], None]] = None, mesh=None) -> None:
-    """``2-scale`` / ``hor-2-scale`` (``flip_pred``) in lockstep: one engine
-    per resolution (the second-scale stream has its own feature grid), each
-    with its own banks. Label mode fuses on the host: each stream's argmax
-    commutes with its nearest upsample, and the hor-2-scale unflip comes
-    after the upsample, as in the reference (``inference_utils.py:386-396``).
-    Probability mode fuses on the device one step at a time (upsample,
-    unflip, reduction, float16 argmax)."""
-    per_video = _videos(dataset)
-    probability = cfg.probability_propagation
-
-    def resolutions(video):
-        item = dataset[per_video[video][0]][0]
-        return tuple(item[0].shape[:2]), tuple(item[1].shape[:2])
-
-    # two per-resolution engines share the card: two lanes a video
-    n_chips = _mesh_data_chips(mesh)
-    clamp = lambda hws: _clamp_video_batch(video_batch, 2, *hws, n_chips=n_chips, archs=(model.model,),
-                                           dtype=compute_dtype(cfg, device))  # noqa: E731
-    for (hw1, hw2), chunk, lengths in _groups(per_video, resolutions, clamp):
-        labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
-        gcfg = _with_budget(cfg, d_max)
-        b = len(chunk)
-        e1 = _make_engine(model, hw1, b, gcfg, device, mesh=mesh)
-        e2 = _make_engine(model, hw2, b, gcfg, device, mesh=mesh)
-        st1 = st2 = None
-
-        def fuse_prob(s1, s2):  # (N, B, D, P_i) → (N, B, H, W) uint8
-            out = torch.empty((s1.shape[0], b) + hw1, dtype=torch.uint8, device=s1.device)
-            for i in range(s1.shape[0]):
-                x1 = nearest_resize(s1[i].transpose(1, 2).reshape(b, e1.hd, e1.wd, -1), hw1, hw_axes=(1, 2))
-                x2 = nearest_resize(s2[i].transpose(1, 2).reshape(b, e2.hd, e2.wd, -1), hw1, hw_axes=(1, 2))
-                if flip_pred:
-                    x2 = torch.flip(x2, dims=(2,))
-                out[i] = torch.argmax(REDUCTIONS[reduction](x1, x2).half(), dim=-1)
-            return out
-
-        def row(t):
-            items = [_frame(dataset, per_video, v, t, lengths[i]) for i, v in enumerate(chunk)]
-            return np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
-
-        def start(first):
-            nonlocal st1, st2
-            # stream 2 gets the full-resolution label (the reference's
-            # ``get_labels``, ``predict.py:136-142``), mirrored for hor-2-scale
-            st1 = e1.start_videos(first[0], np.stack(labels))
-            st2 = e2.start_videos(first[1], np.stack([_flip_label(l, "h" if flip_pred else None) for l in labels]))
-
-        def step(batch, t, n):
-            nonlocal st1, st2
-            x1, x2 = _stack([r[0] for r in batch]), _stack([r[1] for r in batch])
-            if probability:
-                s1, st1 = e1.step_chunk_scores(x1, st1, t)
-                s2, st2 = e2.step_chunk_scores(x2, st2, t)
-                fused = fuse_prob(s1[:n], s2[:n])
-                return lambda: fused.cpu().numpy()
-            m1, st1 = e1.step_chunk_small(x1, st1, t)
-            m2, st2 = e2.step_chunk_small(x2, st2, t)
-
-            def convert():
-                a1 = nearest_resize_host(m1[:n].cpu().numpy(), hw1, hw_axes=(2, 3))
-                a2 = nearest_resize_host(m2[:n].cpu().numpy(), hw1, hw_axes=(2, 3))
-                return np.maximum(a1, a2[:, :, :, ::-1] if flip_pred else a2)
-
-            return convert
-
-        _run_group(chunk, lengths, row, start, step, _png_writer(palettes, save_dir), progress)
-        logger.info(f"batched group {chunk} (2-scale) done.")
-
-
-def inference_3_scale_batched(dataset, annotation_dir, save_dir, model, cfg, device, video_batch: int = 4,
-                              scale: float = 1.0, progress: Optional[Callable[[], None]] = None,
-                              mesh=None) -> None:
-    """``3-scale`` in lockstep: three passes at input scales [0.9, 1.0,
-    ``scale``] (reference ``inference_utils.py:514-595``), each running
-    ``video_batch`` videos per resolution group; each pass's masks are
-    upsampled on the host to the reference's hard-coded (480, 910)
-    (``:574``) and the passes fused by a per-pixel max."""
-    out_hw = (480, 910)
-    predictions: Dict[str, List[List[np.ndarray]]] = defaultdict(list)
-    palettes: Dict[str, Optional[list]] = {}
-    per_video = _videos(dataset)
-
-    def scaled(frame, sc):
-        """Nearest rescale of a uint8 frame on the host; it commutes with the
-        normalisation the reference does first (``:526``)."""
-        h, w = frame.shape[:2]
-        hs, ws = int(np.ceil(h * sc)), int(np.ceil(w * sc))
-        return frame[(np.arange(hs) * h) // hs][:, (np.arange(ws) * w) // ws]
-
-    for pass_idx, sc in enumerate([0.9, 1.0, scale]):
-
-        def resolution(video):
-            h, w = dataset[per_video[video][0]][0].shape[:2]
-            return int(np.ceil(h * sc)), int(np.ceil(w * sc))
-
-        for hw, chunk, lengths in _groups(per_video, resolution, lambda hw: _clamp_video_batch(
-                video_batch, 1, hw, n_chips=_mesh_data_chips(mesh), archs=(model.model,),
-                dtype=compute_dtype(cfg, device))):
-            labels, pals, d_max = _first_labels(chunk, annotation_dir, save_dir, copy=pass_idx == 0)
-            palettes.update(pals)
-            engine = _make_engine(model, hw, len(chunk), _with_budget(cfg, d_max), device, mesh=mesh)
-            state = None
+        for (hw, hws), chunk, lengths in _groups(per_video, resolutions, clamp):
+            labels, palettes, d_max = _first_labels(chunk, annotation_dir, save_dir)
+            gcfg, out, emit = with_budget(cfg, d_max), out_hw or hw, sink or png
+            # one engine per (network, resolution), its lanes the streams sharing it, video-major; their
+            # LaneFusion keeps a video's lanes on one data row of a mesh
+            shared: Dict[tuple, List[int]] = defaultdict(list)
+            for i, s in enumerate(streams):
+                shared[(s.network, hws[i])].append(i)
+            lanes = list(shared.values())
+            engines = [_make_engine(networks[net], ehw, len(chunk) * len(idx), gcfg, device,
+                                    LaneFusion(tuple(streams[i].pred_flip for i in idx), probability, reduction)
+                                    if len(idx) > 1 else None, mesh)
+                       for (net, ehw), idx in shared.items()]
+            states = [None] * len(engines)
 
             def row(t):
-                return np.stack([scaled(_frame(dataset, per_video, v, t, lengths[i]), sc)
-                                 for i, v in enumerate(chunk)])
+                items = [_frame(dataset, per_video, v, t, lengths[i]) for i, v in enumerate(chunk)]
+                return [np.stack([stream_frame(streams[i], it) for it in items for i in idx]) for idx in lanes]
 
             def start(first):
-                nonlocal state
-                # first-frame labels go to this pass's scaled grid (``predict.py:146-153``)
-                state = engine.start_videos(first, np.stack(labels))
+                for k, idx in enumerate(lanes):
+                    states[k] = engines[k].start_videos(
+                        first[k], np.stack([flip_label(label, streams[i].label_flip) for label in labels for i in idx]))
 
             def step(batch, t, n):
-                nonlocal state
-                masks, state = engine.step_chunk_small(_stack(batch), state, t)
-                return lambda: nearest_resize_host(masks[:n].cpu().numpy(), out_hw, hw_axes=(2, 3))
+                frames = [_stack([r[k] for r in batch]) for k in range(len(engines))]
+                if len(streams) == 1:
+                    masks, states[0] = engines[0].step_chunk_small(frames[0], states[0], t)
+                    masks = masks[:n]
+                else:
+                    scores, grids = [None] * len(streams), [None] * len(streams)
+                    for k, idx in enumerate(lanes):
+                        e = engines[k]
+                        x, states[k] = e.step_chunk_scores(frames[k], states[k], t)
+                        x = x[:n].unflatten(1, (len(chunk), len(idx)))
+                        for lane, i in enumerate(idx):
+                            scores[i], grids[i] = x[:, :, lane], (e.hd, e.wd)
+                    masks = fuse(scores, grids, [s.pred_flip for s in streams], out, probability, reduction)
+                return lambda: host_masks(masks, out)
 
-            # frame t of video v lands in collected[v][t - 1], in whatever order the writers run
-            collected = {v: [None] * (lengths[i] - 1) for i, v in enumerate(chunk)}
-            _run_group(chunk, lengths, row, start, step, lambda v, t, mask: collected[v].__setitem__(t - 1, mask),
-                       progress)
-            for v in chunk:
-                predictions[v].append(collected[v])
+            _run_group(chunk, lengths, row, start, step, lambda v, t, m: emit(v, t, m, palettes[v]), progress)
+            logger.info(f"batched group {chunk} ({strategy}) done.")
 
-    logger.info("Fusing 3-scale predictions.")
-    for video, passes in predictions.items():
-        fused = [np.maximum(np.maximum(a, b), c) for a, b, c in zip(*passes)]
-        save_predictions(fused, palettes[video], save_dir, video)
+    run_strategy(run_pass, strategy, scale, save_dir)

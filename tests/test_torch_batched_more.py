@@ -48,7 +48,7 @@ def uneven_tree(tmp_path_factory):
     return root, ckpt
 
 
-@pytest.mark.parametrize("strategy", ["single", "hor-flip"])
+@pytest.mark.parametrize("strategy", ["single", "hor-flip", "3-scale"])
 def test_uneven_groups_match_jax_and_one_video_at_a_time(uneven_tree, tmp_path, monkeypatch, strategy):
     from semi_supervised_vos_tpu.cli.inference import inference_command_impl
 
