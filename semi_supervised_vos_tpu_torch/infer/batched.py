@@ -177,7 +177,7 @@ class BatchedPropagationEngine(PropagationEngine):
         fresh bank holding their features and downsampled one-hot labels."""
         with span("engine.start", new_id=True):
             state = self.init_state()
-            label = torch.as_tensor(np.asarray(labels_full, np.int64), device=self.device)
+            label = self._upload_labels(labels_full)
             small = nearest_resize(label, (self.hd, self.wd), hw_axes=(1, 2)).reshape(self.b, self.p)
             self._write(state, 0, self.encode(frames_u8), index_to_onehot(small, self.d_pad, self.label_dtype))
         return state

@@ -16,11 +16,16 @@ spatial prior off. The sampling schedule runs on the host with Python ints;
 slots, validity and 1/σ² reach the affinity kernel through a small pinned
 table copied without a host wait, so no frame waits on a device→host copy.
 Masks (single stream) or raw scores (the multi-stream strategies) stay on
-the device until the chunk is done. While the recorder records
-(``utils/profiling.py``), a chunk is span ``engine.step`` around
-``engine.upload`` (the frames' move to the device, counted in
-``upload.*``), ``engine.encode`` and each frame's ``engine.propagate`` and
-``engine.write``; a video's first frame is ``engine.start``.
+the device until the chunk is done. On the card the frames of a chunk and
+a video's first label reach the device the same way: copied on the host
+into page-locked (pinned) staging memory, then to the card on the current
+stream without a host wait, so the host goes on launching while the card
+works through the chunks before; the caller's array is free as soon as the
+call returns. While the recorder records (``utils/profiling.py``), a chunk
+is span ``engine.step`` around ``engine.upload`` (the frames' move to the
+device, counted in ``upload.*``), ``engine.encode`` and each frame's
+``engine.propagate`` and ``engine.write``; a video's first frame is
+``engine.start``.
 
 Two paths, as in the JAX engine:
   * on CUDA: the BN-folded ``fast_encode`` with the fused bottleneck kernel
@@ -86,11 +91,27 @@ def grouped_map(fn, x, cap: int) -> torch.Tensor:
     return out
 
 
-def _count_upload(nbytes: int, pinned: bool) -> None:
+def _count_upload(nbytes: int, memory: str) -> None:
+    """``memory``: ``"pageable"`` (a plain host copy), ``"staged"`` (copied
+    through pinned staging memory) or ``"pinned"`` (the caller's own)."""
     profiling.count("upload.calls")
     profiling.count("upload.bytes", nbytes)
-    if not pinned:
-        profiling.count("upload.pageable_bytes", nbytes)
+    if memory != "pinned":
+        profiling.count(f"upload.{memory}_bytes", nbytes)
+
+
+def _staged(src, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``src`` (an array-like or a CPU tensor) as ``dtype`` on the card
+    ``device``: copied on the host into page-locked memory, then to the card
+    on its current stream without a host wait. The staging block comes from
+    PyTorch's caching host allocator, which records the copy's stream and
+    hands the block out again only once the copy is done; ``src`` is free to
+    reuse when this returns."""
+    staged = torch.empty(tuple(np.shape(src)), dtype=dtype, pin_memory=True)
+    # numpy copies on this thread: torch's copy on its intra-op threads sped
+    # up no run of the host-paced one-video loop on the card, and slowed one
+    np.copyto(staged.numpy(), src, casting="unsafe")
+    return staged.to(device, non_blocking=True)
 
 
 class BankState(NamedTuple):
@@ -185,18 +206,43 @@ class PropagationEngine:
     def _upload(self, frames_u8) -> torch.Tensor:
         """(N, H, W, 3) uint8 frames, a numpy array or a tensor, as a tensor
         on the engine's device (one already there is read in place); counts
-        the frames that come from host memory (``upload.*``)."""
+        the frames that come from host memory (``upload.*``).
+
+        On the card the host does not wait here for the work queued before:
+        host frames go through pinned staging memory (:func:`_staged`) and
+        the caller's array is free when this returns; a tensor the caller
+        pinned is copied without a wait as it is, so it must stay unchanged
+        until the card has read it. (Another thread's blocking
+        device-to-host copy, such as a plain ``.cpu()`` of a chunk's masks,
+        still holds the CUDA calls here back until the card reaches it.)
+        On the CPU the frames stay where they are."""
         if isinstance(frames_u8, torch.Tensor):
             if frames_u8.dtype != torch.uint8:
                 raise TypeError(f"frames must be uint8, got {frames_u8.dtype}")
-            if profiling.recording() and frames_u8.device.type == "cpu":
-                _count_upload(frames_u8.nbytes, frames_u8.is_pinned())
-            return frames_u8.to(self.device)
-        # decoded frames are read-only arrays; torch wants writable memory
-        x = torch.from_numpy(np.require(frames_u8, np.uint8, ['C', 'W']))
+            if frames_u8.device.type != "cpu":
+                return frames_u8.to(self.device)
+            pinned = frames_u8.is_pinned()
+            if pinned or not self.on_card:
+                if profiling.recording():
+                    _count_upload(frames_u8.nbytes, "pinned" if pinned else "pageable")
+                return frames_u8.to(self.device, non_blocking=pinned)
+        elif not self.on_card:
+            # decoded frames are read-only arrays; torch wants writable memory
+            x = torch.from_numpy(np.require(frames_u8, np.uint8, ['C', 'W']))
+            if profiling.recording():
+                _count_upload(x.nbytes, "pageable")
+            return x
+        x = _staged(frames_u8, torch.uint8, self.device)
         if profiling.recording():
-            _count_upload(x.nbytes, False)
-        return x.to(self.device)
+            _count_upload(x.nbytes, "staged")
+        return x
+
+    def _upload_labels(self, labels_full) -> torch.Tensor:
+        """First-frame annotations, (..., H, W) class indices, as int64 on
+        the engine's device: on the card staged as the frames are."""
+        if self.on_card:
+            return _staged(labels_full, torch.int64, self.device)
+        return torch.as_tensor(np.asarray(labels_full, np.int64), device=self.device)
 
     @torch.no_grad()
     def encode(self, frames_u8) -> torch.Tensor:
@@ -289,7 +335,7 @@ class PropagationEngine:
         with span("engine.start", new_id=True):
             state = self.init_state()
             feats = self.encode(frame_u8[None])[0]
-            label = torch.as_tensor(np.asarray(label_full, np.int64), device=self.device)
+            label = self._upload_labels(label_full)
             label_small = nearest_resize(label[:, :, None], (self.hd, self.wd)).reshape(self.p)
             self._write(state, 0, feats, index_to_onehot(label_small, self.d_pad, self.label_dtype))
         return state
