@@ -5,11 +5,14 @@
 card raises. All seven strategies run, in label and probability mode, one
 video at a time or, with ``--video-batch`` > 1, that many videos in
 lockstep (``infer/batched.py``), with any of the four ResNets (also as
-multimodel's ``--additional-model-type``) or ``dino_vitb8``, DINO's ViT-B/8
+multimodel's ``--additional-model-type``), ``dino_vitb8``, DINO's ViT-B/8
 (``models/vit.py``: 768-wide features, ``--resume`` a DINO checkpoint or
-one this port saved, ``--temperature`` 10 by default, DINO's 1 / 0.1;
-float32 features on the card are refused, the 3xTF32 bank kernel stopping
-at 256 channels).
+one this port saved, ``--temperature`` 10 by default, DINO's 1 / 0.1), or
+``sam2_hiera_l``, SAM 2.1's Hiera-L image encoder (``models/hiera.py``: the
+256-wide stride-16 neck level of the 2× upsampled frame, ``--resume`` a
+SAM 2 checkpoint or one this port saved, ``--temperature`` 10 by default).
+Float32 features on the card are refused for both: their card paths run in
+bfloat16 (and the 3xTF32 bank kernel stops at 256 channels).
 
 Two multi-device axes, as in the JAX CLI, composable under
 ``--video-batch``: ``--bank-shards`` shards each stream's bank pixel rows
@@ -29,12 +32,14 @@ encodes with the module instead of the BN-folded fast encoder (card only).
 (``utils/profiling.py``: ``engine.step``, ``engine.upload``,
 ``engine.encode``, ``engine.propagate``, ``engine.write``, ``engine.start``,
 ``drain.queue``, ``drain.job``, ``drain.upsample``, ``cli.stack``,
-``png.write``, ``data.decode``, and the ViT's ``vit.embed``,
-``vit.attention``, ``vit.mlp``; ``upload.calls``, ``upload.bytes``,
+``png.write``, ``data.decode``, the ViT's ``vit.embed``,
+``vit.attention``, ``vit.mlp`` and Hiera's ``hiera.embed``,
+``hiera.window_attention``, ``hiera.global_attention``, ``hiera.mlp``,
+``hiera.neck``; ``upload.calls``, ``upload.bytes``,
 ``upload.pageable_bytes``, ``engine.frames``, ``lockstep.lane_steps``,
 ``lockstep.real_lane_steps``, ``data.frames``, ``vit.frames``,
-``vit.tokens``, ``affinity.sweeps``, ``affinity.splits``,
-``affinity.wide_sweeps``)
+``vit.tokens``, ``hiera.frames``, ``hiera.tokens``, ``hiera.windows``,
+``affinity.sweeps``, ``affinity.splits``, ``affinity.wide_sweeps``)
 and logs them once at the end as one ``phase timing | name: …s (nx, … ms
 avg)`` line. ``SVOS_TRACE_DIR=<dir>`` writes a ``torch.profiler`` Chrome
 trace of the run there, the mask drain's and PNG writers' spans included,
@@ -55,7 +60,7 @@ from semi_supervised_vos_tpu_torch.utils.logging import logger
 STRATEGIES = ["single", "hor-flip", "vert-flip", "2-scale", "multimodel", "hor-2-scale", "3-scale"]
 INFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the temperature each network's features were scored at, where it is not 1
-DEFAULT_TEMPERATURE = {"dino_vitb8": 10.0}
+DEFAULT_TEMPERATURE = {"dino_vitb8": 10.0, "sam2_hiera_l": 10.0}
 
 
 def infer_dtype(dev: torch.device) -> torch.dtype:
@@ -74,10 +79,12 @@ def infer_dtype(dev: torch.device) -> torch.dtype:
               help="Path to inference dataset folder.")
 @click.option("--resume", "-r", type=click.Path(file_okay=True, dir_okay=True), required=True,
               help="Path to the trained checkpoint (.pth.tar file).")
-@click.option("--model", "-m", type=click.Choice(["resnet18", "resnet50", "resnet101", "facebook", "dino_vitb8"]),
+@click.option("--model", "-m", type=click.Choice(["resnet18", "resnet50", "resnet101", "facebook", "dino_vitb8",
+                                                  "sam2_hiera_l"]),
               default="resnet50", help="Network architecture.")
 @click.option("--temperature", "-t", type=float, default=None,
-              help="Temperature parameter (default 1.0; 10.0 for dino_vitb8, the reciprocal of DINO's 0.1).")
+              help="Temperature parameter (default 1.0; 10.0 for dino_vitb8, the reciprocal of DINO's 0.1, and for "
+                   "sam2_hiera_l).")
 @click.option("--frame_range", type=int, default=40, help="Range of frames for inference.")
 @click.option("--sigma_1", type=float, default=8.0,
               help="Smaller sigma in the motion model for dense spatial weight.")
@@ -168,20 +175,20 @@ def inference_command_impl(ref_num, data, resume, model, temperature, frame_rang
     check_supported(inference_strategy, additional_resume)
     from semi_supervised_vos_tpu_torch.data.davis import InferenceDataset
     from semi_supervised_vos_tpu_torch.infer import strategies
-    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig
+    from semi_supervised_vos_tpu_torch.infer.engine import EngineConfig, float32_refusal
     from semi_supervised_vos_tpu_torch.models.convert import load_torch_checkpoint
-    from semi_supervised_vos_tpu_torch.models.vos_net import VIT_NAMES, VOSNet, build_vos_net
+    from semi_supervised_vos_tpu_torch.models.vos_net import VOSNet, build_vos_net
     from semi_supervised_vos_tpu_torch.utils.runtime import resolve_device
 
     dev = resolve_device(device)
     dtype = infer_dtype(dev)
-    if model in VIT_NAMES and dev.type == "cuda" and dtype == torch.float32:
-        raise click.UsageError(f"SVOS_INFER_DTYPE=float32 is not ported for {model}: its 768-wide features "
-                               f"exceed the float32 bank kernel's 256 channels; use bfloat16")
+    net = build_vos_net(model)
+    if getattr(net, "card_path", False) and dev.type == "cuda" and dtype == torch.float32:
+        raise click.UsageError(float32_refusal(model, net.feature_dim))
     if temperature is None:
         temperature = DEFAULT_TEMPERATURE.get(model, 1.0)
     mesh, mesh_dp = make_meshes(dev, video_batch, bank_shards, dp_shards)
-    net = load_torch_checkpoint(resume, build_vos_net(model))
+    net = load_torch_checkpoint(resume, net)
     dataset = InferenceDataset(str(Path(data) / "JPEGImages/480p"), inference_strategy=inference_strategy, scale=scale)
     cfg = EngineConfig(
         ref_num=ref_num, frame_range=frame_range, temperature=temperature,

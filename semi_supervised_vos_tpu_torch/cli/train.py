@@ -53,8 +53,9 @@ LOSS_CHOICES = ["cross_entropy", "focal", "contrastive", "triplet"]
               help="Maximum number of triplets to mine (0 means take all triplets).")
 @click.option("--early-stop/--no-early-stop", default=False, help="Whether or not use the early stopping for training.")
 @click.option("--model", "model_name",
-              type=click.Choice(["resnet18", "resnet50", "resnet101", "facebook", "dino_vitb8"]),
-              default="resnet50", help="Backbone (dino_vitb8 is refused: the ViT runs inference only).")
+              type=click.Choice(["resnet18", "resnet50", "resnet101", "facebook", "dino_vitb8", "sam2_hiera_l"]),
+              default="resnet50",
+              help="Backbone (dino_vitb8 and sam2_hiera_l are refused: their features are used frozen).")
 @click.option("--pretrained", type=click.Path(file_okay=True, dir_okay=False), default=None,
               help="Local torchvision ImageNet checkpoint for the backbone (fc dropped; layer4 too but for facebook).")
 @click.option("--device", type=click.Choice(["cuda", "cpu"]), default="cuda", help="Device to run computing on.")
@@ -154,10 +155,10 @@ def train_command_impl(frame_num, training, validation, resume, save_model, epoc
     ``devices``: the mesh's devices in place of every card (or the CPU)."""
     import torch
 
-    from semi_supervised_vos_tpu_torch.models.vos_net import VIT_NAMES
+    from semi_supervised_vos_tpu_torch.models.vos_net import FROZEN_NAMES
 
-    if model_name in VIT_NAMES:
-        raise NotImplementedError(f"training {model_name} is not ported: DINO's ViT features are used frozen "
+    if model_name in FROZEN_NAMES:
+        raise NotImplementedError(f"training {model_name} is not ported: its features are used frozen "
                                   f"(the reference trains only its stride-8 ResNets); run inference with it")
 
     from semi_supervised_vos_tpu_torch.config import default_num_workers

@@ -231,6 +231,11 @@ class BatchedPropagationEngine(PropagationEngine):
 #     activations over 1 + P tokens a frame), ``prof_torch/vit_lanes.py``
 #     (one chunk at 24 and at 4 lanes, an encode call taking one step of
 #     each): 0.7252 GB a lane at 480p and 3.635 GB at 1080p; 82 and 16 lanes.
+#   * sam2_hiera_l (a 256-wide bank; Hiera's activations over the 2x
+#     upsampled frame, 103,680 stage-1 tokens at 480p), the same probe
+#     (``prof_torch/vit_lanes.py sam2_hiera_l``): 0.7618 GB a lane at 480p
+#     and 3.805 GB at 1080p; 78 and 15 lanes (78 lanes peaked at 0.695 of
+#     the card, ``tests/test_torch_cuda_hiera.py``).
 #   * float32 features (SVOS_INFER_DTYPE=float32; the bank's features and
 #     the encoder's activations double), ``prof_torch/lane_caps.py``:
 #     resnet50 0.4727 GB a lane at 480p and 2.384 GB at 1080p, 125 and 24
@@ -242,7 +247,8 @@ _HBM_ANCHOR_P_LARGE = 32400
 _HBM_LANE_PX_SMALL = 232 * _HBM_ANCHOR_P_SMALL
 _HBM_LANE_PX_LARGE = 46 * _HBM_ANCHOR_P_LARGE
 _HBM_LANE_PX_ARCH = {"facebook": (171 * _HBM_ANCHOR_P_SMALL, 33 * _HBM_ANCHOR_P_LARGE),
-                     "dino_vitb8": (82 * _HBM_ANCHOR_P_SMALL, 16 * _HBM_ANCHOR_P_LARGE)}
+                     "dino_vitb8": (82 * _HBM_ANCHOR_P_SMALL, 16 * _HBM_ANCHOR_P_LARGE),
+                     "sam2_hiera_l": (78 * _HBM_ANCHOR_P_SMALL, 15 * _HBM_ANCHOR_P_LARGE)}
 _HBM_LANE_PX_F32 = (125 * _HBM_ANCHOR_P_SMALL, 24 * _HBM_ANCHOR_P_LARGE)
 _HBM_LANE_PX_F32_ARCH = {"facebook": (104 * _HBM_ANCHOR_P_SMALL, 20 * _HBM_ANCHOR_P_LARGE)}
 

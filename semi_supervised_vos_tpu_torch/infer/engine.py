@@ -29,8 +29,9 @@ device, counted in ``upload.*``), ``engine.encode`` and each frame's
 
 Two paths, as in the JAX engine:
   * on CUDA: the BN-folded ``fast_encode`` with the fused bottleneck kernel
-    (for DINO's ViT its own bf16 path, ``models/vit.py::DinoViT.encode``),
-    the bank-direct affinity kernel, bf16 labels;
+    (for a network with a bf16 path of its own, ``card_path`` set, its
+    ``encode``: DINO's ViT, ``models/vit.py``, and SAM 2's Hiera,
+    ``models/hiera.py``), the bank-direct affinity kernel, bf16 labels;
   * on the CPU: the unfolded module forward, the dense golden
     ``affinity_propagate`` and float32 labels — the JAX engine's CPU path.
 
@@ -63,7 +64,6 @@ from semi_supervised_vos_tpu_torch.core.propagation import affinity_propagate
 from semi_supervised_vos_tpu_torch.core.sampling import bank_capacity, sample_frames
 from semi_supervised_vos_tpu_torch.core.spatial import spatial_weight
 from semi_supervised_vos_tpu_torch.models.resnet import out_spatial
-from semi_supervised_vos_tpu_torch.models.vit import DinoViT
 from semi_supervised_vos_tpu_torch.ops.onehot import index_to_onehot
 from semi_supervised_vos_tpu_torch.ops.resize import nearest_resize
 from semi_supervised_vos_tpu_torch.utils import profiling
@@ -112,6 +112,13 @@ def _staged(src, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     # up no run of the host-paced one-video loop on the card, and slowed one
     np.copyto(staged.numpy(), src, casting="unsafe")
     return staged.to(device, non_blocking=True)
+
+
+def float32_refusal(model: str, width: int) -> str:
+    """Why float32 features on the card are refused for ``model``, a network
+    whose card path (``card_path``, ``encode``) runs in bf16 alone."""
+    return (f"SVOS_INFER_DTYPE=float32 is not ported for {model}: its encoder's card path runs in bfloat16 only "
+            f"(its features are {width} wide; the float32 bank kernel takes 256 channels at most); use bfloat16")
 
 
 class BankState(NamedTuple):
@@ -170,25 +177,24 @@ class PropagationEngine:
         width = getattr(self.model, "feature_dim", cfg.feature_dim)
         if width != cfg.feature_dim:
             raise ValueError(f"the model's features are {width} wide, the engine's feature_dim {cfg.feature_dim}")
-        vit = isinstance(self.model, DinoViT)
+        own = getattr(self.model, "card_path", False)
         # the folded table of fast_encode (None: the module encodes, or on
-        # the card a ViT its own bf16 path)
+        # the card a network with a path of its own runs it)
         self.table = None
-        self.vit_card = False
+        self.own_card = False
         if self.on_card:
             from semi_supervised_vos_tpu_torch.models.fold import fold_vosnet
 
-            if vit and self.dtype == torch.float32:
-                raise ValueError(f"float32 features are not ported for {self.model.model}: its {width}-wide bank "
-                                 f"exceeds the float32 bank kernel's 256 channels; use bfloat16")
+            if own and self.dtype == torch.float32:
+                raise ValueError(float32_refusal(self.model.model, width))
             self.label_dtype = torch.bfloat16
             self.d_pad = -(-cfg.num_classes // 8) * 8
             fast = os.environ.get("SVOS_FAST_ENCODER", "1") != "0"
-            if table is None and fast and not vit:
+            if table is None and fast and not own:
                 with torch.no_grad():
                     table = fold_vosnet(self.model, self.dtype)
             self.table = table
-            self.vit_card = vit and fast
+            self.own_card = own and fast
         else:
             self.label_dtype = torch.float32
             self.d_pad = cfg.num_classes
@@ -261,7 +267,7 @@ class PropagationEngine:
             from semi_supervised_vos_tpu_torch.models.infer_fast import fast_encode
 
             feats = fast_encode(self.table, x, self.dtype, arch=self.model.model)
-        elif self.vit_card:
+        elif self.own_card:
             feats = self.model.encode(x, self.dtype)
         elif self.on_card:
             from semi_supervised_vos_tpu_torch.models.infer_fast import _full_float32

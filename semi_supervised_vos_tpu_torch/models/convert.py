@@ -6,7 +6,10 @@
   ``torch.nn.DataParallel`` are stripped (``src/utils/utils.py:88-94``).
   A DINO checkpoint (``models/vit.py``; its ``teacher`` / ``student``
   entry, ``backbone.`` prefixes, the ``head.*`` projection) loads into a
-  ``DinoViT`` through :func:`dino_state_dict`.
+  ``DinoViT`` through :func:`dino_state_dict`; a SAM 2 checkpoint
+  (``models/hiera.py``; its ``model`` entry, the ``image_encoder.trunk.*``
+  and ``image_encoder.neck.*`` keys) into a ``SamHiera`` through
+  :func:`sam2_state_dict`.
 * :func:`save_torch_checkpoint` writes the same format.
 * :func:`load_torchvision_backbone` initialises the backbone from a
   torchvision ImageNet ResNet checkpoint, dropping ``layer4.*`` and ``fc.*``
@@ -33,7 +36,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from semi_supervised_vos_tpu_torch.models.vos_net import VIT_NAMES
+from semi_supervised_vos_tpu_torch.models.vos_net import HIERA_NAMES, VIT_NAMES
 from semi_supervised_vos_tpu_torch.utils.logging import logger
 
 _BN_FIELDS = {
@@ -57,8 +60,9 @@ def load_torch_checkpoint(path, net: torch.nn.Module) -> torch.nn.Module:
         sys.exit(-1)
     logger.info(f"=> loading checkpoint '{path}'")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if getattr(net, "model", None) in VIT_NAMES:
-        net.load_state_dict(dino_state_dict(ckpt, net))
+    model = getattr(net, "model", None)
+    if model in VIT_NAMES or model in HIERA_NAMES:
+        net.load_state_dict((dino_state_dict if model in VIT_NAMES else sam2_state_dict)(ckpt, net))
         logger.info(f"=> loaded checkpoint '{path}'")
         return net
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
@@ -86,6 +90,36 @@ def dino_state_dict(sd: Mapping, net: Optional[torch.nn.Module] = None) -> Dict[
         if k.startswith("head."):
             continue
         out[k] = v
+    return _checked(out, net)
+
+
+def sam2_state_dict(sd: Mapping, net: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """A state dict in SAM 2's checkpoint layout → :class:`~.hiera.SamHiera`'s:
+    the ``model`` (else ``state_dict``) entry, ``module.`` and
+    ``image_encoder.`` prefixes stripped, the image encoder's trunk and the
+    neck's stage-4 and stage-3 laterals (``neck.convs.0`` / ``.1``) kept, and
+    everything else dropped: the neck's stride-8 and stride-4 laterals
+    (``neck.convs.2`` / ``.3``, which feed only SAM 2's mask decoder) and the
+    memory, prompt and mask-decoder modules. A checkpoint this port saved
+    (the module's own keys) loads the same way. With ``net``, every key and
+    shape is checked against it."""
+    for entry in ("model", "state_dict"):
+        if isinstance(sd, dict) and entry in sd and isinstance(sd[entry], dict):
+            sd = sd[entry]
+            break
+    out = {}
+    for k, v in sd.items():
+        for prefix in ("module.", "image_encoder."):
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+        if k.startswith("trunk.") or k.startswith(("neck.convs.0.", "neck.convs.1.")):
+            out[k] = v
+    return _checked(out, net)
+
+
+def _checked(out: Dict[str, torch.Tensor], net: Optional[torch.nn.Module]) -> Dict[str, torch.Tensor]:
+    """``out``, once its keys and shapes are ``net``'s (no check without
+    ``net``)."""
     if net is not None:
         ours = net.state_dict()
         missing, extra = sorted(set(ours) - set(out)), sorted(set(out) - set(ours))

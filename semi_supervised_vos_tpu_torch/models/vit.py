@@ -137,6 +137,8 @@ class DinoViT(nn.Module):
     (:data:`VIT_ARCH`); keyword arguments override its numbers (the tests'
     small networks)."""
 
+    card_path = True  # the engine runs encode() on the card
+
     def __init__(self, model: str = "dino_vitb8", **arch):
         super().__init__()
         if model not in VIT_ARCH:

@@ -11,7 +11,9 @@
 
 :func:`build_vos_net` also builds ``dino_vitb8``, DINO's ViT-B/8
 (``models/vit.py``), whose 768-wide patch tokens take the place of the
-embedding.
+embedding, and ``sam2_hiera_l``, SAM 2.1's Hiera-L image encoder
+(``models/hiera.py``), whose 256-wide stride-16 neck level of the 2×
+upsampled frame does.
 
 ``backbone`` is an ``nn.Sequential`` of the ResNet's first eight children,
 so the state-dict keys are the reference's: ``backbone.0`` (conv1),
@@ -29,16 +31,25 @@ from semi_supervised_vos_tpu_torch.models.resnet import BatchNorm2d, resnet
 
 RESNET_NAMES = ("resnet18", "resnet50", "resnet101", "facebook")
 VIT_NAMES = ("dino_vitb8",)
-MODEL_NAMES = RESNET_NAMES + VIT_NAMES
+HIERA_NAMES = ("sam2_hiera_l",)
+# the frozen embedders: inference only, each with a bf16 card path of its own
+FROZEN_NAMES = VIT_NAMES + HIERA_NAMES
+MODEL_NAMES = RESNET_NAMES + FROZEN_NAMES
 
 
 def build_vos_net(model: str = "resnet50") -> nn.Module:
-    """The network ``model`` names: a :class:`VOSNet`, or for ``dino_vitb8``
-    the ViT (``models/vit.py::DinoViT``, 768-wide features)."""
+    """The network ``model`` names: a :class:`VOSNet`, for ``dino_vitb8`` the
+    ViT (``models/vit.py::DinoViT``, 768-wide features), for
+    ``sam2_hiera_l`` SAM 2's Hiera (``models/hiera.py::SamHiera``, 256-wide
+    features)."""
     if model in VIT_NAMES:
         from semi_supervised_vos_tpu_torch.models.vit import DinoViT
 
         return DinoViT(model)
+    if model in HIERA_NAMES:
+        from semi_supervised_vos_tpu_torch.models.hiera import SamHiera
+
+        return SamHiera(model)
     return VOSNet(model)
 
 

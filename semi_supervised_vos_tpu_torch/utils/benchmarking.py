@@ -145,11 +145,14 @@ def conv_flops(net: torch.nn.Module, x: torch.Tensor) -> float:
 def vosnet_frame_flops(arch: str, hw: Sequence[int]) -> float:
     """:func:`conv_flops` of one (H, W) frame through the network ``arch``
     names (``models/vos_net.py::build_vos_net``), counted on the ``meta``
-    device."""
+    device; a network that counts its own (``frame_flops``: SAM 2's Hiera,
+    whose layers run as functions of its weights) gives that."""
     from semi_supervised_vos_tpu_torch.models.vos_net import build_vos_net
 
     with torch.device("meta"):
         net = build_vos_net(arch)
+        if hasattr(net, "frame_flops"):
+            return net.frame_flops(*hw)
         return conv_flops(net, torch.empty(1, 3, *hw))
 
 
